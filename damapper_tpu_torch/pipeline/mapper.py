@@ -1,0 +1,398 @@
+"""End-to-end mapper: the damapper CLI equivalent (reference damapper.c).
+
+Orchestrates: open reads block -> host k-mer index -> for each reference
+block (forward and complemented): host k-mer index + seed match + native
+chain sweep -> reporter over the full reference, whose wave alignments run
+on the batched wave engine (ops.wave_engine, the CUDA kernel on the card)
+-> sorted .las output (+ -C dual output, -p repeat profile track).
+
+The external LAsort/LAcat/LAmerge post-pass of the reference (damapper.c:
+882-911) is replaced by the in-process chain-preserving sort of io.las.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import numpy as np
+
+from ..io import db as dbio
+from ..io import las as lasio
+from ..io.tracks import merge_mask_tracks
+from ..ops.chain import ChainState
+from ..ops.kmers import sort_kmers, sort_kmers_partitioned
+from ..ops.seeds import match_seeds, match_seeds_multi
+from ..ops.spec import new_align_spec
+from ..ops.wave_engine import WaveEngine, resolve_device
+from .reporter import Reporter
+
+WAVE_BACKENDS = ("device", "oracle")
+
+
+def _physical_memory() -> int:
+    try:
+        return os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    except (ValueError, OSError):
+        return 16 << 30
+
+
+def read_block(path: str, masks: list[str], kmer: int) -> dbio.DazzDB:
+    """Open+trim+load a DB/DAM block with mask tracks (read_DB
+    damapper.c:345-415)."""
+    db = dbio.DazzDB.open(path)
+    for m in masks:
+        dbio.open_mask_track(db, m)
+    db.trim()
+    if len(db.tracks) > 1:
+        merge_mask_tracks(db)
+    if db.cutoff < kmer:
+        if (db.reads["rlen"] < kmer).any():
+            raise ValueError(
+                f"Block {path} contains reads < {kmer}bp long!  Run DBsplit "
+                f"-x{kmer}")
+    db.load_bases()
+    return db
+
+
+class DamapperConfig:
+    """Options of one mapping run.
+
+    device: where the wave engine runs; None means the CUDA card, and with
+    no card that is an error unless the caller passes device="cpu".
+    wave_backend: "device" (the batched wave engine on ``device``) or
+    "oracle" (the host Local_Alignment, one seed at a time).  host_min:
+    wave rounds with fewer lanes run on the host oracle."""
+
+    def __init__(self, kmer=20, suppress=0, mem_limit=None, ave_error=.85,
+                 spacing=100, best_tie=1.0, masks=(), verbose=False,
+                 profile=False, do_a=True, do_b=False, map_order=True,
+                 wave_backend="device", device=None, host_min=16):
+        self.kmer = kmer
+        self.suppress = suppress
+        self.mem_limit = _physical_memory() if mem_limit is None else mem_limit
+        self.ave_error = ave_error
+        self.spacing = spacing
+        self.best_tie = best_tie
+        self.masks = list(masks)
+        self.verbose = verbose
+        self.profile = profile
+        self.do_a = do_a
+        self.do_b = do_b
+        self.map_order = map_order
+        if wave_backend not in WAVE_BACKENDS:
+            raise ValueError(f"wave_backend must be one of {WAVE_BACKENDS}, "
+                             f"got {wave_backend!r}")
+        self.wave_backend = wave_backend
+        self.device = resolve_device(device)
+        self.host_min = host_min
+
+
+def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
+                 out_dir: str = "."):
+    """Map one reads DB/block against a reference DAM.  Returns
+    (a_las_path, b_las_path or None)."""
+    pwd, aroot, isdam = dbio._split_db_path(ref_path)
+    aroot_stub, _ = dbio._strip_part(aroot)
+    stubp = os.path.join(pwd, aroot_stub + (".dam" if isdam else ".db"))
+    if not os.path.exists(stubp):
+        other = os.path.join(pwd, aroot_stub + (".db" if isdam else ".dam"))
+        if os.path.exists(other):
+            stubp = other
+        else:
+            raise FileNotFoundError(f"Could not open database {ref_path}")
+    stub = dbio.read_stub(stubp)
+    nblocks = stub.nblocks
+    if nblocks == 0:
+        raise ValueError(f"DB {aroot_stub} has not been partitioned")
+
+    # base frequencies come from the reference .idx header (damapper.c:788-796)
+    with open(os.path.join(pwd, "." + aroot_stub + ".idx"), "rb") as fp:
+        hdr = np.frombuffer(fp.read(dbio.HEADER_DTYPE.itemsize),
+                            dbio.HEADER_DTYPE)[0]
+    spec = new_align_spec(cfg.ave_error, cfg.spacing, np.array(hdr["freq"]),
+                          reach=True)
+
+    _, broot, _ = dbio._split_db_path(reads_path)
+
+    times = {"load": 0., "index": 0., "match": 0., "chain": 0., "align": 0.}
+    _t = time.time()
+    reads_db = read_block(reads_path, cfg.masks, cfg.kmer)
+    times["load"] += time.time() - _t
+    _t = time.time()
+    bindex = sort_kmers(reads_db, cfg.kmer, cfg.suppress)
+    times["index"] += time.time() - _t
+    if cfg.verbose:
+        # stage counters mirroring the reference -v (map.c:692-697,792-799)
+        print(f"\n   Kmer count = {len(bindex):,}\n"
+              f"   Index occupies {len(bindex) / 67108864:.2f}Gb "
+              f"({broot})", file=sys.stderr)
+
+    state = ChainState(reads_db.nreads, cfg.kmer, profile=cfg.profile,
+                       rlens=reads_db.reads["rlen"], spacing=cfg.spacing)
+
+    # ref-index builds recycle their buffers: each aindex is dead once its
+    # hits are chained, so the next build reuses the warm pages
+    kscratch: dict = {}
+    for k in range(1, nblocks + 1):
+        blk_path = os.path.join(pwd, f"{aroot_stub}.{k}"
+                                + (".dam" if isdam else ".db"))
+        _t = time.time()
+        ref_blk = read_block(blk_path, cfg.masks, cfg.kmer)
+        times["load"] += time.time() - _t
+        bstart = ref_blk.tfirst
+
+        # sub-partition large blocks so each index sort stays cache-resident
+        # (bit-exact: merged per-code counts keep block-level -M/MAXGRAM
+        # semantics; disabled under -t, whose culling is per-block index)
+        sub_bases = int(os.environ.get("DAMAPPER_SUBBLOCK", 24_000_000))
+        use_sub = (sub_bases > 0 and cfg.suppress == 0
+                   and ref_blk.totlen > 2 * sub_bases)
+
+        for comp in (0, 1):
+            if comp:
+                ref_blk.complement_inplace()
+            db_bytes = reads_db.sizeof() + ref_blk.sizeof()
+            _t = time.time()
+            if use_sub:
+                subs = sort_kmers_partitioned(ref_blk, cfg.kmer, sub_bases,
+                                              kscratch)
+                aindex = None
+                times["index"] += time.time() - _t
+                _t = time.time()
+                hits = match_seeds_multi(bindex, subs, cfg.mem_limit,
+                                         db_bytes)
+            else:
+                aindex = sort_kmers(ref_blk, cfg.kmer, cfg.suppress,
+                                    scratch=kscratch)
+                times["index"] += time.time() - _t
+                _t = time.time()
+                hits = match_seeds(bindex, aindex, cfg.mem_limit, db_bytes)
+            times["match"] += time.time() - _t
+            if cfg.verbose:
+                nidx = (sum(len(i) for i, _ in subs) if aindex is None
+                        else len(aindex))
+                print(f"   Block {k} comp={comp}: index = {nidx:,} "
+                      f"kmers, hit count = {len(hits):,}", file=sys.stderr)
+            before = sum(len(c) for c in state.cands)
+            _t = time.time()
+            state.process_hits(hits, bstart, comp)
+            times["chain"] += time.time() - _t
+            if cfg.verbose:
+                # candidate counters (map.c:3184-3208 epilogue)
+                tfilt = sum(len(c) for c in state.cands)
+                atot = max(1, reads_db.totlen)
+                btot = max(1, ref_blk.totlen)
+                print(f"     {len(hits):,} {cfg.kmer}-mers "
+                      f"({len(hits) / atot / btot:e} of matrix)\n"
+                      f"     {tfilt - before:,} candidates added\n"
+                      f"     {tfilt:,} candidates "
+                      f"({tfilt / atot / btot:e} of matrix)",
+                      file=sys.stderr)
+
+    if nblocks == 1:
+        # block 1 IS the full DB: un-complement it (the orientation loop
+        # left it reversed) instead of re-decoding the .bps
+        ref_blk.complement_inplace()
+        ref_full = ref_blk
+    else:
+        ref_full = read_block(os.path.join(pwd, aroot_stub
+                                           + (".dam" if isdam else ".db")),
+                              [], cfg.kmer)
+
+    engine = None
+    if cfg.wave_backend == "device":
+        engine = WaveEngine(spec, device=cfg.device, host_min=cfg.host_min)
+    rep = Reporter(spec, cfg.kmer, cfg.spacing, cfg.best_tie,
+                   do_a=cfg.do_a, do_b=cfg.do_b, engine=engine)
+    profile_out = [] if cfg.profile else None
+    _t = time.time()
+    a_recs, b_recs = rep.run(reads_db, ref_full, state,
+                             astart=reads_db.tfirst, profile_out=profile_out)
+    times["align"] = time.time() - _t
+    if cfg.verbose:
+        print(f"      {len(a_recs):,} mapped segments", file=sys.stderr)
+        print("      stage seconds: " + "  ".join(
+            f"{k}={v:.2f}" for k, v in times.items()), file=sys.stderr)
+        if engine is not None:
+            # wave-engine telemetry: a silent drift to the host-oracle
+            # fallback would destroy device perf while keeping output
+            # identical
+            ndev = engine.n_total - engine.n_fallback - engine.n_hostmin
+            print(f"      wave lanes: {engine.n_total:,} total, "
+                  f"{ndev:,} device, {engine.n_fallback:,} overflow-fallback, "
+                  f"{engine.n_hostmin:,} tiny-round host", file=sys.stderr)
+
+    a_path = b_path = None
+    if cfg.do_a:
+        a_recs = lasio.sort_las(a_recs, cfg.map_order)
+        a_path = os.path.join(out_dir, f"{broot}.{aroot}.las")
+        lasio.write_las(a_path, a_recs, cfg.spacing)
+    if cfg.do_b:
+        b_recs = lasio.sort_las(b_recs, cfg.map_order)
+        b_path = os.path.join(out_dir, f"{aroot}.{broot}.las")
+        lasio.write_las(b_path, b_recs, cfg.spacing)
+
+    if cfg.profile:
+        anno = np.zeros(reads_db.nreads + 1, np.int64)
+        data = bytearray()
+        for i, logv in enumerate(profile_out):
+            anno[i] = len(data)
+            data += logv.tobytes()
+        anno[reads_db.nreads] = len(data)
+        dbio.write_track(os.path.join(out_dir, "." + broot), "prof",
+                         anno, bytes(data), size=8)
+
+    # run telemetry for benchmarks (stage seconds + wave-DP work): the
+    # cell-updates metric is waves x band-capacity, the batched analog of
+    # the reference's WAVE_STATS counters (align.c:297-312).  The keys are
+    # the JAX package's, plus the tiny-round host lanes and the summed
+    # kernel time (CUDA events; 0 off the card)
+    global LAST_STATS
+    LAST_STATS = dict(times=dict(times),
+                      ref_index_cache_hits=0,
+                      ref_index_builds=0,
+                      total_waves=getattr(engine, "total_waves", 0),
+                      band_cap=getattr(engine, "W", 0),
+                      cell_updates=(getattr(engine, "total_waves", 0)
+                                    * getattr(engine, "W", 0)),
+                      n_fallback=getattr(engine, "n_fallback", 0),
+                      n_winmiss=0,      # this engine has no window
+                      n_lanes=getattr(engine, "n_total", 0),
+                      n_hostmin=getattr(engine, "n_hostmin", 0),
+                      kernel_ms=getattr(engine, "kernel_ms", 0.),
+                      # align-stage split: device kernel+pull wall vs the
+                      # host side (trace extraction, refinement, fallback)
+                      align_device_s=round(getattr(engine, "t_run", 0.), 2),
+                      align_host_s=round(
+                          max(0., getattr(engine, "t_batch", 0.)
+                              - getattr(engine, "t_run", 0.)), 2))
+    return a_path, b_path
+
+
+LAST_STATS: dict = {}
+
+
+def expand_db_block_arg(arg: str) -> list[str]:
+    """'@' block-range expansion of a DB/DAM argument (Parse_Block_DB_Arg
+    DB.c:2822-2923): 'root.@' covers every block, 'root.@f' blocks f..n,
+    'root.@f-l' the explicit range; a plain name passes through."""
+    import re
+
+    m = re.search(r"@(\d+)?(?:-(\d+))?$", arg)
+    if not m:
+        return [arg]
+    if arg.count("@") > 1:
+        raise ValueError(f"Two or more occurrences of @-sign in source "
+                         f"name '{arg}'")
+    base = arg[:m.start()].rstrip(".")
+    first = int(m.group(1)) if m.group(1) else 1
+    last = int(m.group(2)) if m.group(2) else None
+    if first < 1:
+        raise ValueError(f"Integer following @-sign is less than 1 in "
+                         f"source name '{arg}'")
+    if last is not None and last < first:
+        raise ValueError(f"2nd integer is less than 1st integer in source "
+                         f"name '{arg}'")
+    if last is None:
+        pwd, root, isdam = dbio._split_db_path(base)
+        stubp = os.path.join(pwd, root + (".dam" if isdam else ".db"))
+        if not os.path.exists(stubp):
+            other = os.path.join(pwd, root + (".db" if isdam else ".dam"))
+            if os.path.exists(other):
+                stubp = other
+            else:
+                raise FileNotFoundError(
+                    f"Cannot open database {root}[db|dam]")
+        last = max(1, dbio.read_stub(stubp).nblocks)
+    return [f"{base}.{k}" for k in range(first, last + 1)]
+
+
+def main_damapper(argv: list[str]) -> int:
+    """CLI with the reference's flag surface (damapper.c:53-56).  The wave
+    engine runs on the CUDA card; DAMAPPER_DEVICE=cpu runs it on the CPU."""
+    kw = dict()
+    args = []
+    flags = set()
+    masks = []
+    ignored = []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a.startswith("-") and len(a) > 1 and not a[1].isdigit():
+            c = a[1]
+            if c in "vpzCN":
+                # combined flag group: every character must be a legal flag
+                # (ARG_FLAGS DB.h:88-99 errors on the first bad one)
+                for ch in a[1:]:
+                    if ch not in "vpzCN":
+                        print(f"damapper: -{ch} is an illegal option",
+                              file=sys.stderr)
+                        return 1
+                    flags.add(ch)
+            elif c == "k":
+                kw["kmer"] = int(a[2:])
+            elif c == "t":
+                kw["suppress"] = int(a[2:])
+            elif c == "M":
+                kw["mem_limit"] = int(a[2:]) << 30
+            elif c == "e":
+                kw["ave_error"] = float(a[2:])
+            elif c == "s":
+                kw["spacing"] = int(a[2:])
+            elif c == "n":
+                kw["best_tie"] = float(a[2:])
+            elif c == "m":
+                masks.append(a[2:])
+            elif c in ("T", "P"):
+                ignored.append(a)   # thread count / tmp dir
+            else:
+                print(f"damapper: -{c} is an illegal option", file=sys.stderr)
+                return 1
+        else:
+            args.append(a)
+        i += 1
+
+    if len(args) < 2:
+        print("Usage: damapper [-vpzCN] [-k<int>] [-t<int>] [-M<int>] "
+              "[-e<double>] [-s<int>] [-n<double>] [-m<track>]+ "
+              "<reference:dam> <reads:db> ...", file=sys.stderr)
+        return 1
+
+    cover = "C" in flags
+    nomap = "N" in flags
+    if nomap and not cover:
+        print("damapper: Cannot specify N flag without C also",
+              file=sys.stderr)
+        return 1
+    if nomap and "p" in flags:
+        print("damapper: Cannot specify both N and p flags together",
+              file=sys.stderr)
+        return 1
+    if ignored and "v" in flags:
+        print(f"damapper: {' '.join(ignored)} accepted and ignored (this "
+              f"engine has no thread count and writes no temporary files)",
+              file=sys.stderr)
+
+    cfg = DamapperConfig(masks=masks, verbose="v" in flags,
+                         profile="p" in flags, do_a=not nomap, do_b=cover,
+                         map_order="z" not in flags,
+                         device=os.environ.get("DAMAPPER_DEVICE") or None,
+                         **kw)
+    if not (.7 <= cfg.ave_error < 1.):
+        print("damapper: Average correlation must be in [.7,1.)",
+              file=sys.stderr)
+        return 1
+    if cfg.kmer > 32:
+        print("damapper: K-mer length must be 32 or less", file=sys.stderr)
+        return 1
+    if not (.7 <= cfg.best_tie <= 1.):
+        print("damapper: Near optimal threshold must be in [.7,1.]",
+              file=sys.stderr)
+        return 1
+
+    for arg in args[1:]:
+        for reads in expand_db_block_arg(arg):
+            run_damapper(args[0], reads, cfg)
+    return 0

@@ -83,3 +83,8 @@ def golden_small(tmp_path_factory):
     ref_db.trim()
     ref_db.load_bases()
     return reads_db, ref_db, recs, tspace
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skipped where there is none")

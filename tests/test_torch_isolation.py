@@ -1,0 +1,97 @@
+"""The port stands alone and never falls back silently.
+
+damapper_tpu_torch imports neither jax nor anything of damapper_tpu, and
+with no CUDA card its entry points raise unless the caller asks for the
+CPU."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import damapper_tpu_torch
+from damapper_tpu_torch.ops import wave_cuda, wave_engine
+from damapper_tpu_torch.pipeline import mapper
+
+PKG = pathlib.Path(damapper_tpu_torch.__file__).resolve().parent
+REPO = PKG.parent
+SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _modules():
+    return sorted(
+        "damapper_tpu_torch" + "".join(
+            "." + p for p in f.relative_to(PKG).with_suffix("").parts
+            if p != "__init__")
+        for f in PKG.rglob("*.py"))
+
+
+def _forbidden(name):
+    return (name == "jax" or name.startswith(("jax.", "jaxlib"))
+            or name == "damapper_tpu" or name.startswith("damapper_tpu."))
+
+
+def test_importing_every_module_loads_no_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')) or m == 'damapper_tpu' or "
+            "m.startswith('damapper_tpu.'))\n"
+            "print(len(sys.modules), bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_no_jax(path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for nm in names:
+            assert not _forbidden(nm), f"{path}:{node.lineno} imports {nm}"
+
+
+def test_config_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mapper.DamapperConfig()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        wave_engine.WaveEngine(None, device="cuda")
+    assert mapper.DamapperConfig(device="cpu").device.type == "cpu"
+
+
+class _CudaTyped:
+    """Stands in for a CUDA tensor on a machine without a card."""
+    device = torch.device("cuda", 0)
+    shape = (8,)
+
+
+def test_wave_lanes_cuda_request_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_plain(*a, **kw):
+        raise AssertionError("the plain version ran for a CUDA request")
+
+    monkeypatch.setattr(wave_cuda, "wave_lanes_ref", no_plain)
+    t = _CudaTyped()
+    launches = wave_cuda.wave_lanes.launches
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        wave_cuda.wave_lanes(t, t, t, t, t, t, t, t, 100, 50, 100, 900,
+                             W=128, P=512, reverse=False)
+    # a CPU sequence memory with CUDA lane inputs is no CPU request either
+    cpu = torch.zeros(8, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="all lie on the CPU"):
+        wave_cuda.wave_lanes(t, t, t, t, t, t, cpu, cpu, 100, 50, 100, 900,
+                             W=128, P=512, reverse=False)
+    assert wave_cuda.wave_lanes.launches == launches
