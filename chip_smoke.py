@@ -7,23 +7,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
   1. device   — the card's name, count, and nvidia-smi name and power limit;
                 no card is a failure.
-  2. build    — nvcc builds csrc/wave.cu for sm_90a (ptxas report printed)
+  2. build    — nvcc builds csrc/wave.cu and csrc/wave_persistent.cu for
+                sm_90a, each in its own process (ptxas reports printed),
                 while g++ builds the native host libraries.
-  3. kernel   — the wave kernel against its plain PyTorch version on the
-                same CUDA tensors: >=128 lanes of 3-9 kb reads at ~15%
-                error plus seeds next to contig ends, W=128, both
-                directions.  Every output field and the pool must be equal
-                (tolerance 0: integer outputs).
-  4. mapping  — the default damapper path (host index and seed match,
-                native chain sweep, reporter, wave engine on the card) on
-                BASELINE config 1: a 4.6 Mb reference in contigs and 1,000
-                simulated PacBio reads of 3-9 kb at ~15% error, -k20
-                -e.85.  The wave kernel must have been launched; 64 of the
-                run's device lanes, sampled from --seed, are re-aligned by
-                the host oracle and must match path and trace.
-  5. las      — a small dataset mapped with the card's wave engine and with
-                the host oracle: identical .las records and -p track bytes.
-  6. kernels  — one JSON line with each ported kernel's launches on the
+  3. kernel   — every wave kernel against its plain PyTorch version on the
+                same CUDA tensors (tolerance 0: integer outputs; every
+                output field and every pool cell below avail), both
+                directions: the three classic kernels (plain, packed,
+                lanepack) on 128 lanes of 3-9 kb reads at ~15% error and on
+                seeds next to contig ends, plain and packed at W=128 (the
+                card's band) and W=64, lanepack at W=64; the three
+                persistent kernels at W=64 on the same two sets, on 8 lanes
+                of 40-45 kb reads (L=65536: the lane-packed windows no
+                longer fit shared memory) and on the 3-9 kb reads with a
+                window too small for them (misses), on the 3-9 kb reads by
+                both window routes.
+  4. mapping  — the damapper path (host index and seed match, native chain
+                sweep, reporter, wave engine on the card) on BASELINE
+                config 1: a 4.6 Mb reference in contigs and 1,000 simulated
+                PacBio reads of 3-9 kb at ~15% error, -k20 -e.85, in six
+                wave modes: classic (the default), classic + packops,
+                classic + lanepack, persistent, persistent + packops,
+                persistent + lanepack.  Each mode's kernel must have been
+                launched; every run's .las records must equal the classic
+                run's; 64 of each run's device lanes, sampled from --seed,
+                are re-aligned by the host oracle and must match path and
+                trace.
+  5. las      — a small dataset mapped with the card's wave engine in the
+                six modes and with the host oracle: identical .las records
+                and -p track bytes.
+  6. kernels  — one JSON line with each ported kernel's launches on its
                 mapping run, its agreement with the plain version, and its
                 time beside its bound and the plain version's time.
 
@@ -82,33 +95,40 @@ def phase_device(torch):
 def phase_build():
     phase("2 build")
     from damapper_tpu_torch import native
-    from damapper_tpu_torch.ops import wave_cuda
+    from damapper_tpu_torch.ops import wave_cuda, wave_persistent
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(4) as ex:
-        jobs = [ex.submit(wave_cuda.build, True), ex.submit(native.kmer_lib),
-                ex.submit(native.chain_lib), ex.submit(native.radix_lib)]
+    with concurrent.futures.ThreadPoolExecutor(5) as ex:
+        jobs = [ex.submit(wave_cuda.build, True),
+                ex.submit(wave_persistent.build, True),
+                ex.submit(native.kmer_lib), ex.submit(native.chain_lib),
+                ex.submit(native.radix_lib)]
         for j in jobs:
             j.result()
     print(f"built in {time.time() - t0:.1f}s")
 
 
-def _cuda_ms(torch, fn, reps):
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
+def _cuda_ms(torch, fn, reps=7):
+    """Median time of one call of fn (CUDA events around each of `reps`
+    calls, after one warm-up call), and the last call's result."""
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    fn()
     torch.cuda.synchronize()
-    ev0.record()
-    for _ in range(reps):
+    for e0, e1 in ev:
+        e0.record()
         out = fn()
-    ev1.record()
+        e1.record()
     torch.cuda.synchronize()
-    return ev0.elapsed_time(ev1) / reps, out
+    return float(np.median([e0.elapsed_time(e1) for e0, e1 in ev])), out
 
 
 def _bound(lanes, out):
     """Least time for the work of one launch: each lane must read the A
     and B bases from its seed to its end point once, read its 6 inputs and
     write its 14 results and its pool rows; per wave it does at least one
-    operation per byte it compares.  Returns (ms, "bytes"|"operations")."""
+    operation per byte it compares.  The same for every kernel: a
+    persistent kernel's window staging is its design's cost, not the
+    function's.  Returns (ms, "bytes"|"operations")."""
     mida = lanes["mida"].cpu().numpy().astype(np.int64)
     k0 = lanes["k0"].cpu().numpy().astype(np.int64)
     o = {f: out[f].cpu().numpy().astype(np.int64)
@@ -126,18 +146,40 @@ def _bound(lanes, out):
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
+def _mismatch(torch, k, r):
+    """Per-field counts of lanes where kernel k and plain version r differ
+    (pool: cells below avail), and the largest absolute difference."""
+    from damapper_tpu_torch.ops.wave_cuda import OUT_FIELDS
+    bad, err = {}, 0
+    for f in OUT_FIELDS:
+        d = (k[f].to(torch.int64) - r[f].to(torch.int64)).abs()
+        err = max(err, int(d.max()))
+        bad[f] = int((d != 0).sum())
+    P = r["pool"].shape[1]
+    below = torch.arange(P, device=r["pool"].device)[None, :] \
+        < r["avail"].to(torch.int64)[:, None]
+    dp = (k["pool"].to(torch.int64) - r["pool"].to(torch.int64)).abs() \
+        * below[:, :, None]
+    err = max(err, int(dp.max()))
+    bad["pool"] = int((dp != 0).any(2).any(1).sum())
+    return bad, err
+
+
 def phase_kernel(torch, seed):
-    phase("3 kernel vs plain version")
+    """The three classic kernels against their one plain version, run once
+    per set, direction and band."""
+    phase("3 kernel vs plain version: classic")
     from damapper_tpu_torch.convert import lanes_from_numpy
     from damapper_tpu_torch.ops.spec import new_align_spec
-    from damapper_tpu_torch.ops.wave_cuda import (OUT_FIELDS, wave_lanes,
+    from damapper_tpu_torch.ops.wave_cuda import (IN_FIELDS, LAYOUTS,
+                                                  pack_record, wave_lanes,
                                                   wave_lanes_ref)
     from damapper_tpu_torch.utils.sim import make_lane_cases
 
     spec = new_align_spec(0.85, 100, [.25, .25, .25, .25], True)
     consts = dict(ts=spec.trace_space, pave=spec.ave_path, msc=spec.mscore,
                   dsc=spec.dscore)
-    W, P = 128, 512     # the card's band; the pool bucket of <=9 kb reads
+    P = 512             # the pool bucket of <=9 kb reads
     dev = torch.device("cuda")
     sets = {
         "reads": make_lane_cases(seed, 128, glen=200_000, rlen=9000,
@@ -147,45 +189,165 @@ def phase_kernel(torch, seed):
         "ends": make_lane_cases(seed + 1, 32, glen=9400, rlen=9000,
                                 rmin=8500, mix=True, err=0.15),
     }
-    timing = {"ms": [], "plain_ms": [], "bound_ms": [], "bound_by": []}
-    max_err = 0
+    # the band each layout's row reports: the engine's default for it
+    band = {"plain": 128, "packed": 128, "lanepack": 64}
+    per = {lay: {"ms": {}, "plain_ms": [], "bound_ms": [], "bound_by": [],
+                 "max_abs_err": 0} for lay in LAYOUTS}
     for nm, (seqmem, insts) in sets.items():
         lanes = lanes_from_numpy(insts, seqmem, dev)
+        rec = pack_record([lanes[f] for f in IN_FIELDS])
         for reverse in (False, True):
-            args = dict(consts, W=W, P=P, reverse=reverse)
-            wave_lanes(**lanes, **args)          # warm-up
-            ms, k = _cuda_ms(torch, lambda: wave_lanes(**lanes, **args), 5)
-            t0 = time.time()
-            r = wave_lanes_ref(**lanes, **args)
+            d = "rev" if reverse else "fwd"
+            for W in (128, 64):
+                args = dict(consts, W=W, P=P, reverse=reverse)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                r = wave_lanes_ref(**lanes, **args)
+                torch.cuda.synchronize()
+                pms = 1e3 * (time.time() - t0)
+                line = [f"{nm} {d} W={W}: {len(insts)} lanes, waves max "
+                        f"{int(r['waves'].max())}, overflow "
+                        f"{int(r['overflow'].sum())}, plain {pms:.1f} ms"]
+                for lay in LAYOUTS:
+                    if lay == "lanepack" and W != 64:
+                        continue
+                    # the packed kernel reads the record the engine uploads
+                    kw = dict(layout=lay)
+                    if lay == "packed":
+                        kw["record"] = rec
+                    ms, k = _cuda_ms(torch, lambda: wave_lanes(
+                        **lanes, **args, **kw))
+                    bad, err = _mismatch(torch, k, r)
+                    q = per[lay]
+                    q["max_abs_err"] = max(q["max_abs_err"], err)
+                    line.append(f"  {lay}: {ms:.4f} ms, mismatching lanes "
+                                f"per field {bad}")
+                    check(not any(bad.values()),
+                          f"classic {lay} kernel and plain version differ "
+                          f"on {nm} {d} W={W}: {bad}")
+                    if nm == "reads":
+                        q["ms"].setdefault(W, []).append(ms)
+                        if W == band[lay]:
+                            bms, bby = _bound(lanes, k)
+                            q["plain_ms"].append(pms)
+                            q["bound_ms"].append(bms)
+                            q["bound_by"].append(bby)
+                print("\n".join(line), flush=True)
+    out = {}
+    for lay in LAYOUTS:
+        q = per[lay]
+        print(f"classic {lay}: " + ", ".join(
+            f"W={W} {np.mean(v):.4f} ms (fwd, rev {v[0]:.4f}, {v[1]:.4f})"
+            for W, v in sorted(q["ms"].items())) + f"; bound "
+            f"{np.mean(q['bound_ms']):.6f} ms ({q['bound_by'][0]})")
+        out[lay] = dict(max_abs_err=q["max_abs_err"],
+                        ms=float(np.mean(q["ms"][band[lay]])),
+                        plain_ms=float(np.mean(q["plain_ms"])),
+                        bound_ms=float(np.mean(q["bound_ms"])),
+                        bound_by=q["bound_by"][0])
+    return out
+
+
+def phase_persistent_kernels(torch, seed):
+    """The three persistent kernels against their one plain version.  The
+    plain version runs once per set and direction; all layouts and routes
+    are held against that one run."""
+    phase("3 kernel vs plain version: persistent")
+    from damapper_tpu_torch.convert import lanes_from_numpy
+    from damapper_tpu_torch.ops.spec import new_align_spec
+    from damapper_tpu_torch.ops.wave_cuda import IN_FIELDS, pack_record
+    from damapper_tpu_torch.ops.wave_persistent import (
+        KERNEL_NAMES, LAYOUTS, wave_lanes_persistent,
+        wave_lanes_persistent_ref, window_fits_smem, window_length)
+    from damapper_tpu_torch.utils.sim import (make_lane_cases,
+                                              make_long_lane_cases)
+
+    spec = new_align_spec(0.85, 100, [.25, .25, .25, .25], True)
+    consts = dict(ts=spec.trace_space, pave=spec.ave_path, msc=spec.mscore,
+                  dsc=spec.dscore)
+    W, P = 64, 512
+    dev = torch.device("cuda")
+
+    def with_L(cases):
+        seqmem, insts = cases
+        return seqmem, insts, window_length(max(s["blen"] for s in insts))
+
+    reads = with_L(make_lane_cases(seed, 128, glen=200_000, rlen=9000,
+                                   rmin=3000, mix=True, err=0.15))
+    long_ = make_long_lane_cases(seed + 2, 8)
+    sets = {
+        "reads": reads,
+        "ends": with_L(make_lane_cases(seed + 1, 32, glen=9400, rlen=9000,
+                                       rmin=8500, mix=True, err=0.15)),
+        # the engine's pool cap: 45 kb reads drop ~900 pebbles a direction
+        "long": (long_[0], long_[1], long_[2], 2048),
+        # the same reads against windows too small for them
+        "miss": (reads[0], reads[1], 2048),
+    }
+    per = {lay: {"ms": [], "ms_global": [], "bound_ms": [], "bound_by": [],
+                 "max_abs_err": 0} for lay in LAYOUTS}
+    plain_ms = []
+    for nm, (seqmem, insts, L, *pool) in sets.items():
+        Pn = pool[0] if pool else P
+        for reverse in (False, True):
+            d = "rev" if reverse else "fwd"
+            lanes = lanes_from_numpy(insts, seqmem, dev, L=L,
+                                     reverse=reverse)
+            args = dict(consts, W=W, P=Pn, L=L, reverse=reverse)
             torch.cuda.synchronize()
-            plain_ms = 1e3 * (time.time() - t0)
-            bad = {}
-            for f in OUT_FIELDS:
-                d = (k[f].to(torch.int64) - r[f].to(torch.int64)).abs()
-                max_err = max(max_err, int(d.max()))
-                bad[f] = int((d != 0).sum())
-            dp = (k["pool"].to(torch.int64) - r["pool"]).abs()
-            max_err = max(max_err, int(dp.max()))
-            bad["pool"] = int((dp != 0).any(2).any(1).sum())
-            bms, bby = _bound(lanes, k)
-            print(f"{nm} {'rev' if reverse else 'fwd'}: {len(insts)} lanes, "
-                  f"waves max {int(k['waves'].max())}, overflow "
-                  f"{int(k['overflow'].sum())}; kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.1f} ms, bound {bms:.6f} ms ({bby}); "
-                  f"mismatching lanes per field {bad}")
-            check(not any(bad.values()),
-                  f"kernel and plain version differ on {nm} "
-                  f"{'rev' if reverse else 'fwd'}: {bad}")
+            t0 = time.time()
+            r = wave_lanes_persistent_ref(**lanes, **args)
+            torch.cuda.synchronize()
+            pms = 1e3 * (time.time() - t0)
             if nm == "reads":
-                timing["ms"].append(ms)
-                timing["plain_ms"].append(plain_ms)
-                timing["bound_ms"].append(bms)
-                timing["bound_by"].append(bby)
-    return dict(max_abs_err=max_err,
-                ms=float(np.mean(timing["ms"])),
-                plain_ms=float(np.mean(timing["plain_ms"])),
-                bound_ms=float(np.mean(timing["bound_ms"])),
-                bound_by=timing["bound_by"][0])
+                plain_ms.append(pms)
+            # the packed kernel reads the record the engine uploads
+            rec = pack_record([lanes[f] for f in IN_FIELDS + ("awst",
+                                                              "bwst")])
+            line = [f"{nm} {d}: {len(insts)} lanes, L={L}, plain "
+                    f"{pms:.1f} ms, overflow {int(r['overflow'].sum())}, "
+                    f"waves max {int(r['waves'].max())}"]
+            for lay in LAYOUTS:
+                # both routes on the reads and long sets (where the windows
+                # fit shared memory), the default route elsewhere
+                fits = window_fits_smem(L, lay)
+                routes = ((True, False) if fits else (False,)) \
+                    if nm in ("reads", "long") else (fits,)
+                for smem in routes:
+                    kw = dict(layout=lay, window_in_smem=smem)
+                    if lay == "packed":
+                        kw["record"] = rec
+                    ms, k = _cuda_ms(torch, lambda: wave_lanes_persistent(
+                        **lanes, **args, **kw))
+                    if nm == "reads":
+                        per[lay]["ms" if smem else "ms_global"].append(ms)
+                    bad, err = _mismatch(torch, k, r)
+                    per[lay]["max_abs_err"] = max(per[lay]["max_abs_err"],
+                                                  err)
+                    route = "smem" if smem else "global"
+                    line.append(f"  {lay}/{route}: {ms:.4f} ms, "
+                                f"mismatching lanes {sum(bad.values())}")
+                    check(not any(bad.values()),
+                          f"persistent {lay} kernel ({route}) and plain "
+                          f"version differ on {nm} {d}: {bad}")
+                    if nm == "reads" and smem:
+                        bms, bby = _bound(lanes, k)
+                        per[lay]["bound_ms"].append(bms)
+                        per[lay]["bound_by"].append(bby)
+            print("\n".join(line), flush=True)
+    out = {}
+    for lay in LAYOUTS:
+        q = per[lay]
+        print(f"{KERNEL_NAMES[lay]}: smem route {np.mean(q['ms']):.4f} ms "
+              f"(fwd, rev {q['ms'][0]:.4f}, {q['ms'][1]:.4f}), global route "
+              f"{np.mean(q['ms_global']):.4f} ms, bound "
+              f"{np.mean(q['bound_ms']):.6f} ms ({q['bound_by'][0]})")
+        out[lay] = dict(max_abs_err=q["max_abs_err"],
+                        ms=float(np.mean(q["ms"])),
+                        plain_ms=float(np.mean(plain_ms)),
+                        bound_ms=float(np.mean(q["bound_ms"])),
+                        bound_by=q["bound_by"][0])
+    return out
 
 
 def _write_dataset(work, seed, glen, ncontigs, nreads, min_len, max_len,
@@ -210,18 +372,47 @@ def _write_dataset(work, seed, glen, ncontigs, nreads, min_len, max_len,
                     for i, r in enumerate(reads)])
 
 
-def phase_mapping(torch, work, seed, glen, nreads):
-    phase("4 mapping: BASELINE config 1")
+# the wave modes of the mapping runs: (name, DamapperConfig switches, the
+# kernel the mode must launch)
+MODES = tuple(
+    (("persistent" if pers else "classic")
+     + {"plain": "", "packed": "+packops", "lanepack": "+lanepack"}[lay],
+     dict(persistent=pers, packops=lay == "packed",
+          lanepack=lay == "lanepack"),
+     ("wave_persistent" if pers else "wave_lanes")
+     + {"plain": "", "packed": "_packed", "lanepack": "_lanepack"}[lay])
+    for pers in (False, True) for lay in ("plain", "packed", "lanepack"))
+
+
+def _counters():
+    """(wrapper, layout, kernel name) of every wave kernel's launch count."""
+    from damapper_tpu_torch.ops import wave_cuda, wave_persistent
+    return [(mod_fn, lay, names[lay])
+            for mod_fn, names in ((wave_cuda.wave_lanes,
+                                   wave_cuda.KERNEL_NAMES),
+                                  (wave_persistent.wave_lanes_persistent,
+                                   wave_persistent.KERNEL_NAMES))
+            for lay in wave_cuda.LAYOUTS]
+
+
+def _zero_launches():
+    for fn, lay, _ in _counters():
+        setattr(fn, "launches_" + lay, 0)
+
+
+def _read_launches():
+    return {nm: getattr(fn, "launches_" + lay) for fn, lay, nm in
+            _counters()}
+
+
+def _map_once(torch, work, seed, nreads, mode, switches, kernel):
+    """One mapping run of the dataset in `work` in one wave mode, with the
+    oracle check of 64 sampled device lanes.  Returns (launches by kernel,
+    .las record keys)."""
+    from damapper_tpu_torch.io import las as lasio
     from damapper_tpu_torch.ops import wave as host_wave
     from damapper_tpu_torch.ops import wave_engine
-    from damapper_tpu_torch.ops.wave_cuda import wave_lanes
     from damapper_tpu_torch.pipeline import mapper
-
-    t0 = time.time()
-    _write_dataset(work, seed, glen, max(2, glen // 500_000), nreads,
-                   3000, 9000, 260_000_000)
-    print(f"dataset: {glen:,} bp reference, {nreads} reads "
-          f"({time.time() - t0:.1f}s to simulate and write)")
 
     # keep each device round's seeds and results for the oracle check (as
     # copies: the reporter fuses paths in place)
@@ -234,43 +425,50 @@ def phase_mapping(torch, work, seed, glen, nreads):
             rounds.append((self.spec, Anp, Bnp, seeds, copy.deepcopy(res)))
         return res
 
+    out = work / mode.replace("+", "_")
+    out.mkdir()
     wave_engine.WaveEngine._batch_inner = recording
     try:
-        cfg = mapper.DamapperConfig(kmer=20, ave_error=.85)
+        cfg = mapper.DamapperConfig(kmer=20, ave_error=.85, **switches)
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        wave_lanes.launches = 0
+        _zero_launches()
         t0 = time.time()
         a_path, _ = mapper.run_damapper(str(work / "ref.dam"),
                                         str(work / "reads.db"), cfg,
-                                        out_dir=str(work))
+                                        out_dir=str(out))
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = wave_lanes.launches
+        launches = _read_launches()
     finally:
         wave_engine.WaveEngine._batch_inner = orig
     st = dict(mapper.LAST_STATS)
     peak = torch.cuda.max_memory_allocated()
-    from damapper_tpu_torch.io import las as lasio
     recs, _ = lasio.read_las(a_path)
     ndev = st["n_lanes"] - st["n_fallback"] - st["n_hostmin"]
+    print(f"--- {mode} (wave_mode {st['wave_mode']}, W={st['band_cap']})")
     print("stage seconds: " + "  ".join(f"{k}={v:.2f}"
                                         for k, v in st["times"].items()))
     print(f"wall {wall:.2f}s  reads/s {nreads / wall:.1f}  "
           f"records {len(recs)}")
-    print(f"lanes: {st['n_lanes']} total, {ndev} device, "
-          f"{st['n_fallback']} overflow-fallback, {st['n_hostmin']} "
-          f"tiny-round host")
-    print(f"wave_lanes launches {launches}  kernel time {st['kernel_ms']:.1f}"
-          f" ms (CUDA events)  waves {st['total_waves']}  cell updates "
+    print(f"lanes: {st['n_lanes']} total, {ndev} device, {st['n_winmiss']} "
+          f"retried on the classic kernel, {st['n_fallback']} "
+          f"overflow-fallback, {st['n_hostmin']} tiny-round host")
+    print(f"launches {launches}  kernel time {st['kernel_ms']:.1f} ms "
+          f"(CUDA events)  waves {st['total_waves']}  cell updates "
           f"{st['cell_updates']}  align device {st['align_device_s']}s "
           f"host {st['align_host_s']}s")
     print(f"max_memory_allocated {peak} bytes")
-    check(launches > 0, "the mapping run launched no wave kernel")
+    check(st["wave_mode"] == mode, f"the run took wave mode "
+          f"{st['wave_mode']}, not {mode}")
+    check(launches[kernel] > 0, f"the {mode} run launched no {kernel}")
+    check(st["kernel_launches"][kernel] == launches[kernel],
+          "the engine's launch count disagrees with the wrapper's")
     check(ndev > 0, "no lane of the mapping run ran on the card")
     check(len(recs) > 0, "the mapping run wrote no .las record")
 
-    lanes = [(sp, A, B, s, res) for sp, A, B, seeds, out in rounds
-             for s, res in zip(seeds, out)]
+    lanes = [(sp, A, B, s, res) for sp, A, B, seeds, res_ in rounds
+             for s, res in zip(seeds, res_)]
     rng = np.random.default_rng(seed)
     pick = rng.choice(len(lanes), size=min(64, len(lanes)), replace=False)
     nbad = 0
@@ -286,9 +484,29 @@ def phase_mapping(torch, work, seed, glen, nreads):
                      != (g.abpos, g.bbpos, g.aepos, g.bepos, g.diffs,
                          list(g.trace)))
     print(f"oracle re-alignment of {len(pick)} sampled device lanes: "
-          f"{nbad} paths differ")
+          f"{nbad} paths differ", flush=True)
     check(len(pick) > 0 and nbad == 0,
           "sampled lanes differ from the host oracle")
+    return launches, [r.key() for r in recs]
+
+
+def phase_mapping(torch, work, seed, glen, nreads):
+    phase("4 mapping: BASELINE config 1, six wave modes")
+    t0 = time.time()
+    _write_dataset(work, seed, glen, max(2, glen // 500_000), nreads,
+                   3000, 9000, 260_000_000)
+    print(f"dataset: {glen:,} bp reference, {nreads} reads "
+          f"({time.time() - t0:.1f}s to simulate and write)")
+    launches, keys = {}, {}
+    for mode, switches, kernel in MODES:
+        got, keys[mode] = _map_once(torch, work, seed, nreads, mode,
+                                    switches, kernel)
+        launches[kernel] = got[kernel]
+    for mode, _, _ in MODES[1:]:
+        same = keys[mode] == keys["classic"]
+        print(f"{mode}: .las records identical to the classic run: {same}")
+        check(same, f"the {mode} run's .las records differ from the classic "
+              f"run's")
     return launches
 
 
@@ -298,8 +516,9 @@ def phase_las(work):
     from damapper_tpu_torch.pipeline import mapper
     _write_dataset(work, 11, 60_000, 2, 12, 2000, 6000, 70_000)
     outs = {}
-    for nm, kw in (("card", dict(host_min=0)),
-                   ("oracle", dict(wave_backend="oracle"))):
+    runs = [(f"card_{mode.replace('+', '_')}", dict(host_min=0, **switches))
+            for mode, switches, _ in MODES]
+    for nm, kw in runs + [("oracle", dict(wave_backend="oracle"))]:
         d = work / nm
         d.mkdir()
         a_path, _ = mapper.run_damapper(
@@ -309,15 +528,16 @@ def phase_las(work):
         outs[nm] = (tspace, [r.key() for r in recs],
                     [(d / f".reads{e}").read_bytes()
                      for e in (".prof.anno", ".prof.data")])
-        if nm == "card":
+        if nm != "oracle":
             check(mapper.LAST_STATS["n_lanes"] > 0,
-                  "the card run aligned no lane on the card")
-    same_las = outs["card"][:2] == outs["oracle"][:2]
-    same_prof = outs["card"][2] == outs["oracle"][2]
-    print(f"records {len(outs['card'][1])}: las identical {same_las}, "
-          f"-p track identical {same_prof}")
-    check(len(outs["card"][1]) > 0, "the small dataset mapped no record")
-    check(same_las and same_prof, "card and oracle outputs differ")
+                  f"the {nm} run aligned no lane on the card")
+    for nm, _ in runs:
+        same_las = outs[nm][:2] == outs["oracle"][:2]
+        same_prof = outs[nm][2] == outs["oracle"][2]
+        print(f"{nm}: records {len(outs[nm][1])}, las identical {same_las}, "
+              f"-p track identical {same_prof}")
+        check(len(outs[nm][1]) > 0, "the small dataset mapped no record")
+        check(same_las and same_prof, f"{nm} and oracle outputs differ")
 
 
 def main(argv=None) -> int:
@@ -336,10 +556,15 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))
+    from damapper_tpu_torch.ops import wave_cuda, wave_persistent
     t_start = time.time()
     name, count, card = phase_device(torch)
     phase_build()
-    kern = phase_kernel(torch, args.seed)
+    kern = {}
+    for lay, k in phase_kernel(torch, args.seed).items():
+        kern[wave_cuda.KERNEL_NAMES[lay]] = k
+    for lay, k in phase_persistent_kernels(torch, args.seed).items():
+        kern[wave_persistent.KERNEL_NAMES[lay]] = k
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = pathlib.Path(tmp)
         (tmp / "map").mkdir()
@@ -349,13 +574,21 @@ def main(argv=None) -> int:
         phase_las(tmp / "las")
     phase("6 kernels")
     print(f"total {time.time() - t_start:.1f}s")
+    src = "damapper_tpu_torch/csrc/"
+    rows = [("wave_lanes", "wave.cu", 1524),
+            ("wave_lanes_packed", "wave.cu", 1457),
+            ("wave_lanes_lanepack", "wave.cu", 1413),
+            ("wave_persistent", "wave_persistent.cu", 2104),
+            ("wave_persistent_packed", "wave_persistent.cu", 2031),
+            ("wave_persistent_lanepack", "wave_persistent.cu", 1981)]
+    kernels = [dict(name=nm, route="cuda", source=src + f,
+                    replaces=f"damapper_tpu/ops/wave_pallas.py:{line}",
+                    launches=launches[nm],
+                    match=kern[nm]["max_abs_err"] == 0, **kern[nm],
+                    library_ms=None)
+               for nm, f, line in rows]
     print(card)
-    print(json.dumps({"kernels": [dict(
-        name="wave_lanes", route="cuda",
-        source="damapper_tpu_torch/csrc/wave.cu",
-        replaces="damapper_tpu/ops/wave_pallas.py:1524",
-        launches=launches, match=kern["max_abs_err"] == 0, **kern,
-        library_ms=None)]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -3,7 +3,10 @@
     python -m damapper_tpu_torch.cli damapper [...]   — the mapper (reference damapper.c CLI)
 
 The wave engine runs on the CUDA card; set DAMAPPER_DEVICE=cpu to run it on
-the CPU (plain PyTorch path).
+the CPU (plain PyTorch path).  DAMAPPER_WAVE_PERSISTENT=1 runs the persistent
+wave kernels (each lane against its sequence windows in shared memory) in
+place of the classic ones; DAMAPPER_WAVE_PACKOPS=1 or DAMAPPER_WAVE_LANEPACK=1
+picks the packed or lane-packed layout of either; -v prints the mode.
 """
 
 from __future__ import annotations

@@ -14,6 +14,7 @@ import torch
 
 from .ops.spec import AlignSpec
 from .ops.wave_engine import trace_offsets
+from .ops.wave_persistent import persistent_windows
 
 
 def align_spec_from_numpy(fields) -> AlignSpec:
@@ -41,14 +42,18 @@ def align_spec_from_numpy(fields) -> AlignSpec:
     return spec
 
 
-def lanes_from_numpy(seeds, seqmem, device, trace_space=100):
+def lanes_from_numpy(seeds, seqmem, device, trace_space=100, L=None,
+                     reverse=False):
     """Kernel inputs for the forward wave of each seed.
 
     seeds: dicts with abase, alen, bbase, blen, diag, anti, flags (the
     engine's seed records).  seqmem: uint8 sequence memory of both sides.
     Returns a dict of int32 [N] tensors abase, bbase, mida, k0, aoffp,
     boffp and the uint8 tensors A and B (the same tensor), all on
-    ``device``: ``wave_lanes(**lanes, ts=...)``-ready."""
+    ``device``: ``wave_lanes(**lanes, ts=...)``-ready.  With a window
+    length L it also holds the lanes' window starts awst and bwst for the
+    ``reverse`` (or forward) wave: ``wave_lanes_persistent(**lanes, L=L,
+    reverse=reverse, ...)``-ready."""
     def col(nm):
         return np.array([s[nm] for s in seeds], np.int64)
 
@@ -60,4 +65,8 @@ def lanes_from_numpy(seeds, seqmem, device, trace_space=100):
            for nm, v in cols.items()}
     out["A"] = out["B"] = torch.from_numpy(
         np.ascontiguousarray(seqmem, np.uint8)).to(device)
+    if L is not None:
+        out["awst"], out["bwst"] = persistent_windows(
+            out["abase"], out["bbase"], out["mida"], out["k0"], len(seqmem),
+            len(seqmem), L, reverse)
     return out

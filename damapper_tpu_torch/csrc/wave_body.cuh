@@ -1,0 +1,759 @@
+// The device-side body of one wave lane, shared by the classic kernel
+// (wave.cu) and the persistent window kernels (wave_persistent.cu).
+//
+// wave_lane() runs one direction of Local_Alignment's adaptive wave for one
+// lane, from the wave-0 prologue (seed snake, first pebbles, first boundary
+// clip) to the lane's end, over W threads (thread t owns ring slot t; see
+// the note at the top of wave.cu).  It is templated on two policies:
+//
+//   Seq  — sequence access: achar(i, miss) / bchar(i, miss) give the byte at
+//          global index i of the A / B sequence memory.  ClassicSeq reads
+//          global memory and gives the sentinel 4 outside [0, len).
+//          WindowSeq<SMEM> reads the lane's window [wst, wst + L), staged in
+//          shared memory (SMEM) or read in place from global memory; bytes
+//          of the window past the end of the sequence memory read 4, and an
+//          index outside the window reads 4 and sets `miss`.  A windowed
+//          lane that needs such a byte is flagged as overflowed and stops at
+//          the end of that wave; a byte is needed when the snake stops on it
+//          (the B byte, and the A byte when the B byte is a base) or when the
+//          REACH rest test reads it.
+//   Bar  — the barrier and vote of the threads that run the lane: BlockBar
+//          (__syncthreads, the whole block) or HalfBar (a named barrier of
+//          the 64 threads of one half of a 128-thread block, so that two
+//          lanes share a block and each half waits only for itself).
+//
+// With ClassicSeq the window tests compile away.  The lane-input layouts
+// (SplitIO, PackedIO) at the end serve both files' kernels.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace wavebody {
+
+constexpr int NEG_BIG = -(1 << 30);
+constexpr int I32MAX = 0x7FFFFFFF;
+constexpr int PATH_LEN = 60;
+constexpr int TRIM_LEN = 15;
+constexpr int TRIM_MLAG = 250;
+constexpr int WAVE_LAG = 30;
+constexpr int TRIM_RB = 10;
+constexpr int DRANK = 2;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr uint64_t MASK61 = (1ull << 61) - 1;
+constexpr int NOUT = 14;   // output fields, in wave_cuda.OUT_FIELDS order
+
+__device__ __forceinline__ int floordiv(int a, int b) {
+  int q = a / b;
+  if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
+  return q;
+}
+
+__device__ __forceinline__ int floormod(int a, int b) {
+  int r = a % b;
+  if (r != 0 && ((r < 0) != (b < 0))) r += b;
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// sequence-access policies
+// ---------------------------------------------------------------------------
+
+struct ClassicSeq {
+  static constexpr bool kWindowed = false;
+  const uint8_t* A;
+  long long LA;
+  const uint8_t* B;
+  long long LB;
+
+  // one unsigned compare tests 0 <= i < len
+  __device__ __forceinline__ int achar(long long i, int&) const {
+    return (unsigned long long)i < (unsigned long long)LA ? (int)__ldg(A + i)
+                                                          : 4;
+  }
+  __device__ __forceinline__ int bchar(long long i, int&) const {
+    return (unsigned long long)i < (unsigned long long)LB ? (int)__ldg(B + i)
+                                                          : 4;
+  }
+};
+
+template <bool SMEM>
+struct WindowSeq {
+  static constexpr bool kWindowed = true;
+  // SMEM: the staged window bytes; else the sequence memory at the window
+  // start.  valid*: how many window bytes lie in the sequence memory (the
+  // rest read 4; a staged window holds the 4s itself, so there it is L)
+  const uint8_t* wa;
+  const uint8_t* wb;
+  long long awst, bwst;
+  long long valida, validb;
+  int L;
+
+  __device__ __forceinline__ int get(const uint8_t* w, long long r,
+                                     long long valid, int& miss) const {
+    if ((unsigned long long)r >= (unsigned long long)L) {
+      miss = 1;
+      return 4;
+    }
+    if (SMEM) return w[r];
+    return r < valid ? (int)__ldg(w + r) : 4;
+  }
+  __device__ __forceinline__ int achar(long long i, int& miss) const {
+    return get(wa, i - awst, valida, miss);
+  }
+  __device__ __forceinline__ int bchar(long long i, int& miss) const {
+    return get(wb, i - bwst, validb, miss);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// barrier policies
+// ---------------------------------------------------------------------------
+
+struct BlockBar {
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+  __device__ __forceinline__ int any(int p) const {
+    return __syncthreads_or(p);
+  }
+};
+
+struct HalfBar {
+  int id;   // named barrier 1 or 2 (barrier 0 is __syncthreads')
+
+  __device__ __forceinline__ void sync() const {
+    asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
+  }
+  __device__ __forceinline__ int any(int p) const {
+    int r;
+    asm volatile(
+        "{\n\t.reg .pred ip, op;\n\t"
+        "setp.ne.s32 ip, %1, 0;\n\t"
+        "bar.red.or.pred op, %2, 64, ip;\n\t"
+        "selp.s32 %0, 1, 0, op;\n\t}"
+        : "=r"(r)
+        : "r"(p), "r"(id)
+        : "memory");
+    return r;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// the lane
+// ---------------------------------------------------------------------------
+
+template <int W>
+struct LaneShared {
+  static constexpr int NW = W / 32;
+  int sV[W], sNA[W], sNB[W], sM[W], sHA[W], sHB[W], sMA[W], sMB[W];
+  uint64_t sT[W];
+  int sbuf[W], sres[W];
+  int red[NW], wtot[NW];
+  unsigned balA[NW], balB[NW];
+  int pro[12];
+};
+
+struct LaneIn {
+  long long abase, bbase;
+  int mida, k0, aoffp, boffp;
+};
+
+struct Consts {
+  int P, TS, pave, msc, dsc, max_waves;
+};
+
+struct OpMax { __device__ int operator()(int a, int b) const { return a > b ? a : b; } };
+struct OpMin { __device__ int operator()(int a, int b) const { return a < b ? a : b; } };
+struct OpSum { __device__ int operator()(int a, int b) const { return a + b; } };
+
+template <int NW, class Bar, class Op>
+__device__ __forceinline__ int block_reduce(int v, int* red, const Bar& bar,
+                                            int t, Op op) {
+  for (int o = 16; o; o >>= 1) v = op(v, __shfl_xor_sync(FULL, v, o));
+  bar.sync();                           // earlier readers of red are done
+  if ((t & 31) == 0) red[t >> 5] = v;
+  bar.sync();
+  int r = red[0];
+#pragma unroll
+  for (int i = 1; i < NW; ++i) r = op(r, red[i]);
+  return r;
+}
+
+// suffix-positivity of a TRIM_LEN-column window (bit TRIM_LEN-1 oldest)
+__device__ __forceinline__ void trim_table(int x, int msc, int dsc, int& t,
+                                           int& s) {
+  int cum = 0, maxp = 0;
+#pragma unroll
+  for (int ii = TRIM_LEN - 1; ii >= 0; --ii) {
+    cum += ((x >> ii) & 1) ? msc : -dsc;
+    maxp = cum > maxp ? cum : maxp;
+  }
+  t = cum - maxp;
+  s = cum;
+}
+
+// One lane, prologue to end.  t: the thread's slot (0..W-1) among the W
+// threads that Bar synchronises.  lpool: the lane's P pool rows.  On return
+// every thread holds the lane's NOUT results in vals.
+template <int W, bool REV, class Seq, class Bar>
+__device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
+                                          const Bar& bar, LaneShared<W>& sh,
+                                          const int t, const Consts cs,
+                                          int4* __restrict__ lpool,
+                                          int (&vals)[NOUT]) {
+  constexpr int Wm = W - 1;
+  constexpr int NW = W / 32;
+  constexpr int sgn = REV ? -1 : 1;
+  constexpr int soff = REV ? -1 : 0;
+  constexpr int fill = REV ? I32MAX : NEG_BIG;
+
+  const int wl = t & 31, wi = t >> 5;
+  const long long abase = in.abase, bbase = in.bbase;
+  const int mida = in.mida, k0 = in.k0;
+  const int aoffp = in.aoffp, boffp = in.boffp;
+  const int P = cs.P, TS = cs.TS;
+  int* const pro = sh.pro;
+  int* const red = sh.red;
+
+  // ---------------- wave 0: prologue (make_prologue) ----------------
+  const int y0 = floordiv(mida - k0, 2);
+  int na0, nb0, amark0, bmark0;
+  if (!REV) {
+    na0 = (floordiv(y0 + k0 + (TS - aoffp), TS) - 1) * TS + aoffp;
+    nb0 = (floordiv(y0 + (TS - boffp), TS) - 1) * TS + boffp;
+    amark0 = na0;
+    bmark0 = nb0;
+    na0 += TS;
+    nb0 += TS;
+  } else {
+    na0 = (floordiv(y0 + k0 + (TS - aoffp) - 1, TS) - 1) * TS + aoffp;
+    nb0 = (floordiv(y0 + (TS - boffp) - 1, TS) - 1) * TS + boffp;
+    amark0 = y0 + k0;
+    bmark0 = y0;
+  }
+
+  // seed snake, 32 columns per step over warp 0
+  if (wi == 0) {
+    long long pb = bbase + y0 + soff, pa = abase + (long long)y0 + k0 + soff;
+    int run = 0, ca = 0, cb = 0, miss = 0;
+    while (true) {
+      long long j = (long long)sgn * (run + wl);
+      int mb = 0, ma = 0;
+      int b = seq.bchar(pb + j, mb), a = seq.achar(pa + j, ma);
+      bool stop = (b == 4) || (a != b);
+      unsigned m = __ballot_sync(FULL, stop);
+      if (m) {
+        int f = __ffs(m) - 1;
+        int bf = __shfl_sync(FULL, b, f), af = __shfl_sync(FULL, a, f);
+        if (Seq::kWindowed)
+          miss = __shfl_sync(FULL, mb | ((b != 4) & ma), f);
+        run += f;
+        cb = bf == 4;
+        ca = !cb && af == 4;
+        break;
+      }
+      run += 32;
+    }
+    if (wl == 0) {
+      pro[0] = y0 + sgn * run;
+      pro[1] = ca;
+      pro[2] = cb;
+      pro[10] = miss;
+    }
+  }
+  bar.sync();
+  const int y0f = pro[0];
+  const bool clipA0 = pro[1], clipB0 = pro[2];
+  int pmiss = Seq::kWindowed ? pro[10] : 0;
+  const int c0 = 2 * y0f + k0;
+
+  // initial pebbles: the A trace line first, then the B line
+  if (t == 0) {
+    lpool[0] = make_int4(-1, k0, 0, amark0);
+    lpool[1] = make_int4(-1, k0, 0, bmark0);
+    int av = 2;
+    int x = y0f + k0, nn = na0, h = 0, mk = amark0;
+    while (REV ? x <= nn : x >= nn) {
+      if (av < P) lpool[av] = make_int4(h, k0, 0, nn);
+      mk = nn;
+      if (av < P) h = av;
+      nn += REV ? -TS : TS;
+      ++av;
+    }
+    pro[3] = nn; pro[4] = h; pro[5] = mk;
+    x = y0f;
+    nn = nb0;
+    h = 1;
+    mk = bmark0;
+    while (REV ? x <= nn : x >= nn) {
+      if (av < P) lpool[av] = make_int4(h, k0, 0, nn);
+      mk = nn;
+      if (av < P) h = av;
+      nn += REV ? -TS : TS;
+      ++av;
+    }
+    pro[6] = nn; pro[7] = h; pro[8] = mk; pro[9] = av;
+  }
+  bar.sync();
+  na0 = pro[3];
+  const int ha0 = pro[4], amk0 = pro[5];
+  nb0 = pro[6];
+  const int hb0 = pro[7], bmk0 = pro[8];
+  int avail = pro[9];
+
+  const bool better0 = REV ? (c0 < mida) : (c0 > mida);
+  int besta = better0 ? c0 : mida;
+  int besty = better0 ? y0f : y0;
+  int lasta = besta;
+  const int trima0 = besta, trimy0 = besty;
+  const int trimha0 = better0 ? ha0 : 0, trimhb0 = better0 ? hb0 : 1;
+
+  const int s0 = k0 & Wm;
+  int V = (t == s0) ? c0 : fill;
+  uint64_t T = (1ull << 60) - 1;
+  int M = PATH_LEN;
+  int NA = (t == s0) ? na0 : 0, NB = (t == s0) ? nb0 : 0;
+  int HA = (t == s0) ? ha0 : 0, HB = (t == s0) ? hb0 : 0;
+  int MA = (t == s0) ? amk0 : 0, MB = (t == s0) ? bmk0 : 0;
+  int ltk = 0, ltc = 0, lty = 0, ltha = 0, lthb = 0;
+
+  int low = k0, hgh = k0;
+  int morem = -1, morea = 0, morey = 0, mored = 0, moreha = 0, morehb = 0;
+  int more = !(clipA0 || clipB0);
+  // wave-0 clip: a hit boundary is the seed diagonal itself
+  if (!more) {
+    int mb = 0, ma = 0;
+    const int rb = seq.bchar(bbase + besty + soff, mb);
+    const int ra = seq.achar(abase + (long long)(besta - besty) + soff, ma);
+    if (Seq::kWindowed) pmiss |= mb | ((rb != 4) & ma);
+    const bool rest = rb != 4 && ra != 4;
+    // the A clip is graded first, then the B clip (both at k0)
+    for (int side = 0; side < 2; ++side) {
+      const bool hit = side == 0 ? clipA0 : clipB0;
+      if (hit && morem <= PATH_LEN) {
+        morem = PATH_LEN;
+        morea = c0;
+        morey = floordiv(c0 - k0, 2);
+        moreha = ha0;
+        morehb = hb0;
+      }
+    }
+    if (!REV) {
+      if (clipA0) hgh = k0 - 1;
+      if (clipB0) low = k0 + 1;
+    } else {
+      if (clipA0) low = k0 + 1;
+      if (clipB0) hgh = k0 - 1;
+    }
+    more = rest;
+  }
+  int overflow = pmiss;
+  int live = more && !overflow;
+  int dif = 0;
+
+  // ---------------- waves 1, 2, ... ----------------
+  while (live) {
+    --low;
+    ++hgh;
+    ++dif;
+    if (hgh - low + 4 >= W || avail + W >= P) overflow = 1;
+    const int rel = floormod(t - low, W);
+    const int k = low + rel;
+    const bool inb = k <= hgh;
+    const int sl = low & Wm, sh_ = hgh & Wm;
+
+    // wave start: border init and pick3 inheritance from ring neighbours
+    if (t == sl || t == sh_) V = fill;
+    sh.sV[t] = V; sh.sNA[t] = NA; sh.sNB[t] = NB; sh.sM[t] = M;
+    sh.sT[t] = T; sh.sHA[t] = HA; sh.sHB[t] = HB; sh.sMA[t] = MA;
+    sh.sMB[t] = MB;
+    bar.sync();
+    const int tp = (t + 1) & Wm, tm = (t - 1) & Wm;
+    if (t == sl) {
+      NA = sh.sNA[tp];
+      NB = sh.sNB[tp];
+    } else if (t == sh_) {
+      NA = sh.sNA[tm];
+      NB = sh.sNB[tm];
+    }
+    int y = 0, sm = 0, wha = 0, whb = 0, wma = 0, wmb = 0;
+    uint64_t sTv = 0;
+    if (inb) {
+      const int span = hgh - low;
+      const int ap = floormod(tp - low, W) <= span ? sh.sV[tp] : fill;
+      const int am = floormod(tm - low, W) <= span ? sh.sV[tm] : fill;
+      const int ac = V;
+      bool pickP, pickM;
+      int cst;
+      if (!REV) {
+        const bool lt = ac < am;
+        pickP = (lt && am < ap) || (!lt && ac < ap);
+        pickM = lt && !pickP;
+        cst = pickP ? ap + 1 : (pickM ? am + 1 : ac + 2);
+      } else {
+        const bool gt = ac > ap;
+        pickM = (gt && ap > am) || (!gt && ac > am);
+        pickP = gt && !pickM;
+        cst = pickM ? am - 1 : (pickP ? ap - 1 : ac - 2);
+      }
+      const int src = pickP ? tp : (pickM ? tm : t);
+      sm = sh.sM[src];
+      sTv = sh.sT[src];
+      wha = sh.sHA[src];
+      whb = sh.sHB[src];
+      wma = sh.sMA[src];
+      wmb = sh.sMB[src];
+      sm -= (int)((sTv >> 60) & 1);
+      sTv = (sTv << 1) & MASK61;
+      // int32 wrap-around as in the JAX driver (only reachable from an
+      // emptied band whose border slots hold the fill value)
+      y = floordiv((int)((unsigned)cst - (unsigned)k), 2);
+    }
+
+    // snake: walk the diagonal to the first mismatch or sentinel
+    bool sa = false, sb = false;
+    int smiss = 0;
+    if (inb) {
+      const long long pb = bbase + y + soff;
+      const long long pa = abase + (long long)y + k + soff;
+      int run = 0;
+      while (true) {
+        int mb = 0, ma = 0;
+        const int b = seq.bchar(pb + (long long)sgn * run, mb);
+        const int a = seq.achar(pa + (long long)sgn * run, ma);
+        if (b == 4) { sb = true; smiss = mb; break; }
+        if (a != b) { sa = a == 4; smiss = ma; break; }
+        ++run;
+      }
+      int pops;
+      if (run >= 61) {
+        pops = __popcll(sTv) + (run - 61);
+        sTv = MASK61;
+      } else {
+        pops = __popcll(sTv >> (61 - run));
+        sTv = ((sTv << run) | ((1ull << run) - 1)) & MASK61;
+      }
+      sm += run - pops;
+      y += sgn * run;
+    }
+
+    // wave end: pebble drops, DRANK ranks per trip over [A | B] slot order
+    const int c = (int)(2u * (unsigned)y + (unsigned)k);
+    const bool cA = inb && sa, cB = inb && sb;
+    const int clip_any = bar.any(cA || cB);
+    if (Seq::kWindowed) {
+      if (bar.any(smiss)) overflow = 1;
+    }
+    const int more_new = clip_any ? 0 : more;
+    {
+      const long long Xa = (long long)y + k;
+      const int Xb = y;
+      const unsigned ltmask = (1u << wl) - 1;
+      while (true) {
+        const bool dA = inb && (REV ? Xa <= NA : Xa >= NA);
+        const bool dB = inb && (REV ? Xb <= NB : Xb >= NB);
+        if (!bar.any(dA || dB)) break;
+        const bool nA = dA && (REV ? wma > NA : wma < NA);
+        const bool nB = dB && (REV ? wmb > NB : wmb < NB);
+        const unsigned bA = __ballot_sync(FULL, nA);
+        const unsigned bB = __ballot_sync(FULL, nB);
+        if (wl == 0) {
+          sh.balA[wi] = bA;
+          sh.balB[wi] = bB;
+        }
+        bar.sync();
+        int preA = 0, preB = 0, totA = 0, totB = 0;
+#pragma unroll
+        for (int i = 0; i < NW; ++i) {
+          const int pa = __popc(sh.balA[i]), pb = __popc(sh.balB[i]);
+          if (i < wi) {
+            preA += pa;
+            preB += pb;
+          }
+          totA += pa;
+          totB += pb;
+        }
+        const int rA = preA + __popc(bA & ltmask);
+        const int rB = totA + preB + __popc(bB & ltmask);
+        const bool pA = nA && rA < DRANK, pB = nB && rB < DRANK;
+        if (pA) {
+          const int pi = avail + rA;
+          if (pi < P) lpool[pi] = make_int4(wha, k, dif, NA);
+          wha = pi;
+          wma = NA;
+        }
+        if (pB) {
+          const int pi = avail + rB;
+          if (pi < P) lpool[pi] = make_int4(whb, k, dif, NB);
+          whb = pi;
+          wmb = NB;
+        }
+        if (dA && (!nA || pA)) NA += REV ? -TS : TS;
+        if (dB && (!nB || pB)) NB += REV ? -TS : TS;
+        const int cnt = totA + totB;
+        avail += cnt < DRANK ? cnt : DRANK;
+        if (avail + W >= P) overflow = 1;
+      }
+    }
+
+    // best / trim triggers: exclusive suffix max (reverse: prefix min) of c
+    // over the band in diagonal order, i.e. in rel order
+    const int cm = inb ? c : fill;
+    sh.sbuf[rel] = cm;
+    bar.sync();
+    {
+      int v = sh.sbuf[t];
+      if (!REV) {
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int u = __shfl_down_sync(FULL, v, o);
+          if (wl + o < 32) v = u > v ? u : v;
+        }
+        int ex = __shfl_down_sync(FULL, v, 1);
+        if (wl == 31) ex = NEG_BIG;
+        if (wl == 0) sh.wtot[wi] = v;
+        bar.sync();
+        for (int i = wi + 1; i < NW; ++i)
+          ex = sh.wtot[i] > ex ? sh.wtot[i] : ex;
+        sh.sres[t] = ex;
+      } else {
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int u = __shfl_up_sync(FULL, v, o);
+          if (wl >= o) v = u < v ? u : v;
+        }
+        int ex = __shfl_up_sync(FULL, v, 1);
+        if (wl == 0) ex = I32MAX;
+        if (wl == 31) sh.wtot[wi] = v;
+        bar.sync();
+        for (int i = 0; i < wi; ++i) ex = sh.wtot[i] < ex ? sh.wtot[i] : ex;
+        sh.sres[t] = ex;
+      }
+    }
+    bar.sync();
+    const int excl = sh.sres[rel];
+    bool trigger;
+    if (!REV) {
+      const int runbase = besta > excl ? besta : excl;
+      trigger = inb && c > runbase;
+    } else {
+      const int runbase = besta < excl ? besta : excl;
+      trigger = inb && c < runbase;
+    }
+    int t1, s1, t2, s2;
+    trim_table((int)(sTv & 0x7FFF), cs.msc, cs.dsc, t1, s1);
+    trim_table((int)((sTv >> 15) & 0x7FFF), cs.msc, cs.dsc, t2, s2);
+    const bool tbl_ok = t1 >= 0 && t2 + s1 >= 0;
+    const bool m_ok = sm >= cs.pave;
+    int bandc, lastc;
+    bool any0, any1;
+    if (!REV) {
+      bandc = block_reduce<NW>(cm, red, bar, t, OpMax());
+      lastc = block_reduce<NW>(trigger && m_ok ? c : NEG_BIG, red, bar, t,
+                               OpMax());
+      any0 = bandc > besta;
+      any1 = lastc != NEG_BIG;
+    } else {
+      bandc = block_reduce<NW>(cm, red, bar, t, OpMin());
+      lastc = block_reduce<NW>(trigger && m_ok ? c : I32MAX, red, bar, t,
+                               OpMin());
+      any0 = bandc < besta;
+      any1 = lastc != I32MAX;
+    }
+    const int kstar = block_reduce<NW>(trigger && c == bandc ? k : 0, red,
+                                       bar, t, OpSum());
+    if (any0) {
+      besty = floordiv(bandc - kstar, 2);
+      besta = bandc;
+    }
+    if (any1) lasta = lastc;
+    if (trigger && m_ok && tbl_ok) {
+      ltk = (dif << TRIM_RB) | (REV ? rel : Wm - rel);
+      ltc = c;
+      lty = y;
+      ltha = wha;
+      lthb = whb;
+    }
+
+    // store the band
+    if (inb) {
+      V = c;
+      T = sTv;
+      M = sm;
+      HA = wha;
+      HB = whb;
+      MA = wma;
+      MB = wmb;
+    }
+
+    // boundary clip + REACH grab
+    const bool clipped = clip_any && more;
+    if (clipped) {
+      int aclip, bclip;
+      bool hit_a, hit_b;
+      if (!REV) {
+        aclip = block_reduce<NW>(cA ? k : I32MAX, red, bar, t, OpMin());
+        bclip = block_reduce<NW>(cB ? k : -I32MAX, red, bar, t, OpMax());
+        hit_a = hgh >= aclip;
+        hit_b = low <= bclip;
+      } else {
+        aclip = block_reduce<NW>(cA ? k : -I32MAX, red, bar, t, OpMax());
+        bclip = block_reduce<NW>(cB ? k : I32MAX, red, bar, t, OpMin());
+        hit_a = low <= aclip;
+        hit_b = hgh >= bclip;
+      }
+      for (int side = 0; side < 2; ++side) {
+        const int kc = side == 0 ? aclip : bclip;
+        const bool hit = side == 0 ? hit_a : hit_b;
+        const bool sel = k == kc;
+        const int Mv = block_reduce<NW>(sel ? M : 0, red, bar, t, OpSum());
+        const int Vv = block_reduce<NW>(sel ? V : 0, red, bar, t, OpSum());
+        const int HAv = block_reduce<NW>(sel ? HA : 0, red, bar, t, OpSum());
+        const int HBv = block_reduce<NW>(sel ? HB : 0, red, bar, t, OpSum());
+        if (hit && morem <= Mv) {
+          morem = Mv;
+          morea = Vv;
+          morey = floordiv(Vv - kc, 2);
+          mored = dif;
+          moreha = HAv;
+          morehb = HBv;
+        }
+      }
+      if (!REV) {
+        if (hit_a) hgh = aclip - 1;
+        if (hit_b) low = bclip + 1;
+      } else {
+        if (hit_a) low = aclip + 1;
+        if (hit_b) hgh = bclip - 1;
+      }
+    }
+
+    // band prune on the post-clip band
+    {
+      const int rel2 = floormod(t - low, W);
+      const bool inb2 = low + rel2 <= hgh;
+      const bool ok = inb2 && (REV ? V <= besta + WAVE_LAG
+                                   : V >= besta - WAVE_LAG);
+      const int hi_rel = block_reduce<NW>(ok ? rel2 : -1, red, bar, t,
+                                          OpMax());
+      const int lo_rel = block_reduce<NW>(ok ? rel2 : W, red, bar, t,
+                                          OpMin());
+      if (hi_rel >= 0) {
+        hgh = low + hi_rel;
+        low = low + (lo_rel < hi_rel ? lo_rel : hi_rel);
+      }
+    }
+
+    // next wave?  A clipped lane first resolves its REACH rest test
+    const bool go = REV ? lasta <= besta + TRIM_MLAG
+                        : lasta >= besta - TRIM_MLAG;
+    more = more_new;
+    live = more && go && !overflow;
+    if (clipped) {
+      int mb = 0, ma = 0;
+      const int rb = seq.bchar(bbase + besty + soff, mb);
+      const int ra = seq.achar(abase + (long long)(besta - besty) + soff,
+                               ma);
+      if (Seq::kWindowed && (mb | ((rb != 4) & ma))) overflow = 1;
+      const bool rest = rb != 4 && ra != 4;
+      more = rest;
+      live = rest && go && !overflow;
+    }
+    if (live && dif >= cs.max_waves) {
+      overflow = 1;
+      live = 0;
+    }
+  }
+
+  // trim point: the slot with the largest (dif, rel) key (_trim_extract)
+  const int kmax = block_reduce<NW>(ltk, red, bar, t, OpMax());
+  if (kmax > 0 && ltk == kmax) {
+    pro[0] = ltc;
+    pro[1] = lty;
+    pro[2] = ltha;
+    pro[3] = lthb;
+  }
+  bar.sync();
+  const bool have = kmax > 0;
+  vals[0] = have ? pro[0] : trima0;
+  vals[1] = have ? pro[1] : trimy0;
+  vals[2] = have ? (kmax >> TRIM_RB) : 0;
+  vals[3] = have ? pro[2] : trimha0;
+  vals[4] = have ? pro[3] : trimhb0;
+  vals[5] = morem;
+  vals[6] = morea;
+  vals[7] = morey;
+  vals[8] = mored;
+  vals[9] = moreha;
+  vals[10] = morehb;
+  vals[11] = avail;
+  vals[12] = overflow;
+  vals[13] = dif;
+}
+
+// ---------------------------------------------------------------------------
+// lane inputs and outputs
+// ---------------------------------------------------------------------------
+
+constexpr int NREC_IN = 8;     // abase bbase mida k0 aoffp boffp awst bwst
+constexpr int NREC_OUT = 16;   // the NOUT fields and 2 pad words
+
+// One int32 array per field (plain and lane-packed layouts).  awst/bwst:
+// the window starts, read only by the window kernels.
+struct SplitIO {
+  const int* abase;
+  const int* bbase;
+  const int* mida;
+  const int* k0;
+  const int* aoffp;
+  const int* boffp;
+  const int* awst;
+  const int* bwst;
+  int* out;   // (NOUT, n)
+  int n;
+
+  __device__ __forceinline__ LaneIn load(int lane) const {
+    return LaneIn{abase[lane], bbase[lane], mida[lane],
+                  k0[lane],    aoffp[lane], boffp[lane]};
+  }
+  __device__ __forceinline__ void window(int lane, long long& aw,
+                                         long long& bw) const {
+    aw = awst[lane];
+    bw = bwst[lane];
+  }
+  __device__ __forceinline__ void store(int lane,
+                                        const int (&vals)[NOUT]) const {
+#pragma unroll
+    for (int f = 0; f < NOUT; ++f) out[(long long)f * n + lane] = vals[f];
+  }
+};
+
+// One record per lane (packed layout): (n, NREC_IN) int32 in, read as two
+// 16-byte loads, and (n, NREC_OUT) int32 out, written as four 16-byte
+// stores, so the caller moves one array each way.
+struct PackedIO {
+  const int4* rin;
+  int4* rout;
+  int n;
+
+  __device__ __forceinline__ LaneIn load(int lane) const {
+    const int4 r0 = rin[2 * (long long)lane], r1 = rin[2 * (long long)lane + 1];
+    return LaneIn{r0.x, r0.y, r0.z, r0.w, r1.x, r1.y};
+  }
+  __device__ __forceinline__ void window(int lane, long long& aw,
+                                         long long& bw) const {
+    const int4 r1 = rin[2 * (long long)lane + 1];
+    aw = r1.z;
+    bw = r1.w;
+  }
+  __device__ __forceinline__ void store(int lane,
+                                        const int (&vals)[NOUT]) const {
+    int4* o = rout + (NREC_OUT / 4) * (long long)lane;
+    o[0] = make_int4(vals[0], vals[1], vals[2], vals[3]);
+    o[1] = make_int4(vals[4], vals[5], vals[6], vals[7]);
+    o[2] = make_int4(vals[8], vals[9], vals[10], vals[11]);
+    o[3] = make_int4(vals[12], vals[13], 0, 0);
+  }
+};
+
+}  // namespace wavebody

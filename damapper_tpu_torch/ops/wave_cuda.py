@@ -8,17 +8,25 @@ the host trace extraction (ops.wave) consumes.
 
 Two implementations with one contract:
 
-  * ``csrc/wave.cu`` — the hand-written CUDA kernel for sm_90a, one thread
-    block per lane (see the note at the top of that file), built with nvcc
-    at first use into ``build/torch_kernels/`` and bound through ctypes;
-  * ``wave_lanes_ref`` — the plain PyTorch version: a Python loop over
-    waves over a (N, W) lane batch with masks for finished lanes, a snake
-    step that gathers SS columns per slot, and floor division/modulo
+  * ``csrc/wave.cu`` — the hand-written CUDA kernels for sm_90a, one per
+    layout of the lane state (see the note at the top of that file), built
+    with nvcc at first use into ``build/torch_kernels/`` and bound through
+    ctypes:
+      layout "plain"    — one thread block per lane, one int32 array per
+                          field (TPU kernel: wave_pallas.py:1524);
+      layout "packed"   — the same, with one (N, 8) int32 input record and
+                          one (N, 16) output record per lane
+                          (wave_pallas.py:1457);
+      layout "lanepack" — two W=64 lanes per 128-thread block, each half on
+                          its own named barrier (wave_pallas.py:1413);
+  * ``wave_lanes_ref`` — the plain PyTorch version of all three: a Python
+    loop over waves over a (N, W) lane batch with masks for finished lanes,
+    a snake step that gathers SS columns per slot, and floor division/modulo
     throughout.  It repeats the kernel's arithmetic and is no yardstick of
     speed.
 
 ``wave_lanes`` takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.
+tensors it launches the layout's kernel or raises.
 
 The result equals the JAX package's classic segment driver field for field,
 pool cells included, on every lane that neither flags as overflowed.  A lane
@@ -51,8 +59,18 @@ OUT_FIELDS = ("trima", "trimy", "trimd", "trimha", "trimhb",
               "morem", "morea", "morey", "mored", "moreha", "morehb",
               "avail", "overflow", "waves")
 IN_FIELDS = ("abase", "bbase", "mida", "k0", "aoffp", "boffp")
+LAYOUTS = ("plain", "packed", "lanepack")
+KERNEL_NAMES = {"plain": "wave_lanes", "packed": "wave_lanes_packed",
+                "lanepack": "wave_lanes_lanepack"}
+NREC_IN = 8             # the packed input record: IN_FIELDS, awst, bwst
+NREC_OUT = 16           # the packed output record: OUT_FIELDS, 2 pad words
 
-_CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "wave.cu"
+CSRC_DIR = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+_CSRC = CSRC_DIR / "wave.cu"
+# every source a kernel library is built from: a library older than any of
+# them is rebuilt
+KERNEL_SOURCES = tuple(CSRC_DIR / f for f in
+                       ("wave.cu", "wave_persistent.cu", "wave_body.cuh"))
 BUILD_DIR = (pathlib.Path(__file__).resolve().parent.parent.parent
              / "build" / "torch_kernels")
 
@@ -101,10 +119,33 @@ def _trim_tables(x, msc, dsc):
     return cum - maxp, cum
 
 
+def memory_reader(mem):
+    """The classic sequence access: ``read(idx) -> (bytes, None)``, the
+    sentinel 4 outside the memory.  Reads outside the sequence memory see
+    the sentinel: the same bytes as the JAX driver's clamped gathers, since
+    the memory starts and ends with a sentinel."""
+    LM = int(mem.shape[0])
+
+    def read(idx):
+        return torch.where((idx >= 0) & (idx < LM),
+                           mem[idx.clamp(0, LM - 1)], 4), None
+
+    return read
+
+
 def wave_lanes_ref(abase, bbase, mida, k0, aoffp, boffp, A, B, ts, pave,
-                   msc, dsc, *, W, P, reverse, max_waves=MAX_WAVES):
+                   msc, dsc, *, W, P, reverse, max_waves=MAX_WAVES,
+                   seq=None):
     """Plain PyTorch version of ``wave_lanes`` (same signature and
-    result)."""
+    result).
+
+    seq: the sequence access, a pair of readers (A side, B side); each maps
+    an int64 index tensor whose first dimension is the lane to (bytes,
+    miss), where miss is None or a bool tensor that marks indices outside
+    the lane's window (read as 4).  None: ``memory_reader`` of A and B.  A
+    lane that needs a missed byte (the snake stops on it, or the REACH rest
+    test reads it) is flagged as overflowed and stops at the end of that
+    wave, as the window kernels do (csrc/wave_body.cuh)."""
     dev = A.device
     i64 = torch.int64
     N = int(abase.shape[0])
@@ -113,22 +154,18 @@ def wave_lanes_ref(abase, bbase, mida, k0, aoffp, boffp, A, B, ts, pave,
     sgn = -1 if reverse else 1
     soff = -1 if reverse else 0
     fill = INT32_MAX if reverse else NEG_BIG
-    LA, LB = int(A.shape[0]), int(B.shape[0])
     ab, bb, mida, k0, aoffp, boffp = (
         t.to(dev, i64) for t in (abase, bbase, mida, k0, aoffp, boffp))
     ar = torch.arange(N, device=dev)
     slots = torch.arange(W, device=dev, dtype=i64)[None, :]
 
-    # reads outside the sequence memory see the sentinel: the same bytes as
-    # the JAX driver's clamped gathers, since the memory starts and ends
-    # with a sentinel
-    def achar(idx):
-        return torch.where((idx >= 0) & (idx < LA), A[idx.clamp(0, LA - 1)],
-                           4)
+    windowed = seq is not None
+    achar, bchar = seq if windowed else (memory_reader(A), memory_reader(B))
 
-    def bchar(idx):
-        return torch.where((idx >= 0) & (idx < LB), B[idx.clamp(0, LB - 1)],
-                           4)
+    def needed(bv, bm, am):
+        # a missed byte is needed where the read stops on it: the B byte,
+        # and the A byte when the B byte is a base
+        return bm | ((bv != 4) & am)
 
     # ---------------- wave 0: prologue ----------------
     y0 = (mida - k0) >> 1
@@ -152,10 +189,11 @@ def wave_lanes_ref(abase, bbase, mida, k0, aoffp, boffp, A, B, ts, pave,
     stop = torch.zeros(N, dtype=torch.bool, device=dev)
     ca = torch.zeros_like(stop)
     cb = torch.zeros_like(stop)
+    pmiss = torch.zeros_like(stop)
     while not bool(stop.all()):
         run = ~stop
-        bw = bchar((bb + y + soff)[:, None] + stepv)
-        aw = achar((ab + y + k0 + soff)[:, None] + stepv)
+        bw, bm = bchar((bb + y + soff)[:, None] + stepv)
+        aw, am = achar((ab + y + k0 + soff)[:, None] + stepv)
         sbv = bw == 4
         misv = bw != aw
         advv = ~sbv & ~misv
@@ -163,6 +201,8 @@ def wave_lanes_ref(abase, bbase, mida, k0, aoffp, boffp, A, B, ts, pave,
         nst = pref.sum(1)
         prefx = torch.cat([torch.ones_like(pref[:, :1]), pref[:, :-1]], 1)
         fs = (prefx == 1) & ~advv
+        if windowed:
+            pmiss |= run & (fs & needed(bw, bm, am)).any(1)
         sb = (fs & sbv).any(1)
         sa = (fs & ~sbv & misv & (aw == 4)).any(1)
         y = torch.where(run, y + sgn * nst, y)
@@ -227,8 +267,11 @@ def wave_lanes_ref(abase, bbase, mida, k0, aoffp, boffp, A, B, ts, pave,
         return arr.gather(1, (kc & Wm)[:, None])[:, 0]
 
     clipped = ~more
-    rest = (bchar(bb + besty + soff) != 4) & \
-        (achar(ab + besta - besty + soff) != 4)
+    rb, rbm = bchar(bb + besty + soff)
+    ra, ram = achar(ab + besta - besty + soff)
+    rest = (rb != 4) & (ra != 4)
+    if windowed:
+        pmiss |= clipped & needed(rb, rbm, ram)
     if not reverse:
         hit_a = clipped & (hgh >= aclip)
         hit_b = clipped & (low <= bclip)
@@ -250,8 +293,8 @@ def wave_lanes_ref(abase, bbase, mida, k0, aoffp, boffp, A, B, ts, pave,
         low = torch.where(hit_a, aclip + 1, low)
         hgh = torch.where(hit_b, bclip - 1, hgh)
     more = torch.where(clipped, rest, more)
-    live = more.clone()
-    overflow = torch.zeros_like(more)
+    overflow = pmiss
+    live = more & ~overflow
     dif = zero.clone()
 
     # ---------------- waves 1, 2, ... ----------------
@@ -302,13 +345,14 @@ def wave_lanes_ref(abase, bbase, mida, k0, aoffp, boffp, A, B, ts, pave,
         sact = in_band & Lb
         sca = torch.zeros_like(sact)
         scb = torch.zeros_like(sact)
+        smiss = torch.zeros_like(sact)
 
         # snake: every active slot walks its diagonal to the first mismatch
         # or sentinel, SS columns per step
         stepw = stepv[:, :, None].transpose(1, 2)     # (1, 1, SS)
         while bool(sact.any()):
-            bw = bchar((bb[:, None] + sy + soff)[:, :, None] + stepw)
-            aw = achar((ab[:, None] + sy + k + soff)[:, :, None] + stepw)
+            bw, bm = bchar((bb[:, None] + sy + soff)[:, :, None] + stepw)
+            aw, am = achar((ab[:, None] + sy + k + soff)[:, :, None] + stepw)
             sbv = bw == 4
             stopv = sbv | (bw != aw)
             found = stopv.any(2)
@@ -319,6 +363,8 @@ def wave_lanes_ref(abase, bbase, mida, k0, aoffp, boffp, A, B, ts, pave,
             jc = jstar.clamp(max=SS - 1)[:, :, None]
             sb = done & sbv.gather(2, jc)[:, :, 0]
             sa = done & ~sb & (aw.gather(2, jc)[:, :, 0] == 4)
+            if windowed:
+                smiss |= done & needed(bw, bm, am).gather(2, jc)[:, :, 0]
             nT, pops = _shift_in_matches(sT, nst)
             sm = torch.where(sact, sm + nst - pops, sm)
             sT = torch.where(sact, nT, sT)
@@ -333,6 +379,8 @@ def wave_lanes_ref(abase, bbase, mida, k0, aoffp, boffp, A, B, ts, pave,
         clipB = scb & in_band
         clip_any = (clipA | clipB).any(1)
         more_new = torch.where(L & clip_any, False, more)
+        if windowed:
+            overflow |= L & smiss.any(1)
         X2 = torch.cat([sy + k, sy], 1)
         N2 = torch.cat([NA, NB], 1)
         H2 = torch.cat([wha, whb], 1)
@@ -475,8 +523,11 @@ def wave_lanes_ref(abase, bbase, mida, k0, aoffp, boffp, A, B, ts, pave,
             go = lasta >= besta - TRIM_MLAG
         more = more_new
         live = L & more & go & ~overflow
-        rest = (bchar(bb + besty + soff) != 4) & \
-            (achar(ab + besta - besty + soff) != 4)
+        rb, rbm = bchar(bb + besty + soff)
+        ra, ram = achar(ab + besta - besty + soff)
+        rest = (rb != 4) & (ra != 4)
+        if windowed:
+            overflow |= clipped & needed(rb, rbm, ram)
         more = torch.where(clipped, rest, more)
         live = torch.where(clipped, rest & go & ~overflow, live)
         capped = live & (dif >= max_waves)
@@ -510,13 +561,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 
-def build(verbose: bool = False) -> pathlib.Path:
-    """Compile csrc/wave.cu with nvcc into build/torch_kernels/ (skipped
-    when the library is newer than the source).  verbose=True adds
-    ``-Xptxas -v`` and returns after printing its report."""
-    so = BUILD_DIR / "libwave.so"
-    if not verbose and so.exists() and \
-            so.stat().st_mtime > _CSRC.stat().st_mtime:
+def nvcc_build(src: pathlib.Path, name: str,
+               verbose: bool = False) -> pathlib.Path:
+    """Compile one csrc/ source with nvcc into build/torch_kernels/<name>
+    (skipped when the library is newer than every kernel source).
+    verbose=True adds ``-Xptxas -v`` and prints its report."""
+    so = BUILD_DIR / name
+    if not verbose and so.exists() and so.stat().st_mtime > max(
+            f.stat().st_mtime for f in KERNEL_SOURCES):
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = os.environ.get("NVCC") or (
@@ -524,7 +576,7 @@ def build(verbose: bool = False) -> pathlib.Path:
         if os.path.exists("/usr/local/cuda/bin/nvcc") else "nvcc")
     tmp = so.with_suffix(".so.tmp%d" % os.getpid())
     cmd = [nvcc, *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-o", str(tmp), str(_CSRC)]
+        + ["-o", str(tmp), str(src)]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
@@ -534,86 +586,179 @@ def build(verbose: bool = False) -> pathlib.Path:
     return so
 
 
+def build(verbose: bool = False) -> pathlib.Path:
+    """Build csrc/wave.cu into build/torch_kernels/libwave.so."""
+    return nvcc_build(_CSRC, "libwave.so", verbose)
+
+
 def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        lib.wave_lanes_launch.restype = ctypes.c_int
-        lib.wave_lanes_launch.argtypes = (
-            [ctypes.c_void_p] * 6
-            + [ctypes.c_void_p, ctypes.c_longlong,
-               ctypes.c_void_p, ctypes.c_longlong]
-            + [ctypes.c_int] * 9
-            + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+        P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        seqargs = [P, LL, P, LL]
+        tail = [P, P, P]                  # out, pool, stream
+        lib.wave_lanes_launch.argtypes = [P] * 6 + seqargs + [I] * 9 + tail
+        lib.wave_lanes_packed_launch.argtypes = [P] + seqargs + [I] * 9 \
+            + tail
+        lib.wave_lanes_lanepack_launch.argtypes = [P] * 6 + seqargs \
+            + [I] * 8 + tail
+        for fn in (lib.wave_lanes_launch, lib.wave_lanes_packed_launch,
+                   lib.wave_lanes_lanepack_launch):
+            fn.restype = ctypes.c_int
         lib.wave_error_string.restype = ctypes.c_char_p
-        lib.wave_error_string.argtypes = [ctypes.c_int]
+        lib.wave_error_string.argtypes = [I]
         _lib = lib
     return _lib
 
 
-def _launch(ins, A, B, ts, pave, msc, dsc, W, P, reverse, max_waves):
+def check_seq(fn, A, B):
+    """A and B: contiguous 1-D uint8 tensors on one device; returns it."""
+    dev = A.device
+    for nm, t in (("A", A), ("B", B)):
+        if t.dtype != torch.uint8 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{fn}: {nm} must be a contiguous 1-D uint8 "
+                             f"tensor")
+        if t.device != dev:
+            raise ValueError(f"{fn}: {nm} is on {t.device}, not {dev}")
+    return dev
+
+
+def check_lanes(fn, names, ins, record, dev):
+    """The lane inputs: contiguous int32 [n] tensors on dev, or (packed
+    layout) one contiguous int32 [n, NREC_IN] record.  Returns n."""
+    if record is not None:
+        n = int(record.shape[0])
+        if record.dtype != torch.int32 or tuple(record.shape) != \
+                (n, NREC_IN) or not record.is_contiguous() \
+                or record.device != dev:
+            raise ValueError(f"{fn}: record must be a contiguous int32 "
+                             f"[n, {NREC_IN}] tensor on {dev}")
+        return n
+    n = int(ins[0].shape[0])
+    for nm, t in zip(names, ins):
+        if t.dtype != torch.int32 or t.shape != (n,) \
+                or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{fn}: {nm} must be a contiguous int32 [{n}] "
+                             f"tensor on {dev}")
+    return n
+
+
+def pack_record(ins):
+    """The packed layout's (n, NREC_IN) input record from the lane inputs
+    (six fields, or eight with the window starts; the rest is 0)."""
+    rec = torch.zeros((int(ins[0].shape[0]), NREC_IN), dtype=torch.int32,
+                      device=ins[0].device)
+    for i, t in enumerate(ins):
+        rec[:, i] = t
+    return rec
+
+
+def out_buffers(n, layout, dev):
+    """The output buffer of one launch and the result fields as its views:
+    (n, NREC_OUT) records for the packed layout (also returned whole as
+    ``record``), else (len(OUT_FIELDS), n) rows."""
+    if layout == "packed":
+        out = torch.empty((n, NREC_OUT), dtype=torch.int32, device=dev)
+        res = {nm: out[:, i] for i, nm in enumerate(OUT_FIELDS)}
+        res["record"] = out
+    else:
+        out = torch.empty((len(OUT_FIELDS), n), dtype=torch.int32,
+                          device=dev)
+        res = {nm: out[i] for i, nm in enumerate(OUT_FIELDS)}
+    return out, res
+
+
+def count_launch(fn, layout):
+    attr = "launches_" + layout
+    setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+def _launch(ins, A, B, ts, pave, msc, dsc, W, P, reverse, max_waves, layout,
+            record):
+    fn = "wave_lanes"
     if not torch.cuda.is_available():
         raise RuntimeError("wave_lanes: CUDA tensors given but no CUDA "
                            "device is available")
-    dev = A.device
-    if W not in (64, 128):
-        raise ValueError(f"wave_lanes: W must be 64 or 128, got {W}")
+    if W not in (64, 128) or (layout == "lanepack" and W != 64):
+        raise ValueError(f"wave_lanes: W={W} is not served by layout "
+                         f"{layout!r} (64 or 128; lanepack 64)")
     if P < W + 2:
         raise ValueError(f"wave_lanes: P={P} must exceed W+2")
-    for nm, t in (("A", A), ("B", B)):
-        if t.dtype != torch.uint8 or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"wave_lanes: {nm} must be a contiguous 1-D "
-                             f"uint8 tensor")
-        if t.device != dev:
-            raise ValueError(f"wave_lanes: {nm} is on {t.device}, not {dev}")
-    n = int(ins[0].shape[0])
-    for nm, t in zip(IN_FIELDS, ins):
-        if t.dtype != torch.int32 or t.shape != (n,) \
-                or not t.is_contiguous() or t.device != dev:
-            raise ValueError(f"wave_lanes: {nm} must be a contiguous int32 "
-                             f"[{n}] tensor on {dev}")
-    out = torch.empty((len(OUT_FIELDS), n), dtype=torch.int32, device=dev)
+    dev = check_seq(fn, A, B)
+    n = check_lanes(fn, IN_FIELDS, ins, record, dev)
+    if layout == "packed" and record is None:
+        record = pack_record(ins)
+    out, res = out_buffers(n, layout, dev)
     pool = torch.zeros((n, P, 4), dtype=torch.int32, device=dev)
     if n:
         lib = _load()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.wave_lanes_launch(
-            *[t.data_ptr() for t in ins],
-            A.data_ptr(), A.shape[0], B.data_ptr(), B.shape[0],
-            n, W, P, int(reverse), int(ts), int(pave), int(msc), int(dsc),
-            int(max_waves), out.data_ptr(), pool.data_ptr(), stream)
+        seqargs = (A.data_ptr(), A.shape[0], B.data_ptr(), B.shape[0])
+        scal = (int(reverse), int(ts), int(pave), int(msc), int(dsc),
+                int(max_waves))
+        tail = (out.data_ptr(), pool.data_ptr(), stream)
+        if layout == "plain":
+            rc = lib.wave_lanes_launch(*[t.data_ptr() for t in ins],
+                                       *seqargs, n, W, P, *scal, *tail)
+        elif layout == "packed":
+            rc = lib.wave_lanes_packed_launch(record.data_ptr(), *seqargs, n,
+                                              W, P, *scal, *tail)
+        else:
+            rc = lib.wave_lanes_lanepack_launch(
+                *[t.data_ptr() for t in ins], *seqargs, n, P, *scal, *tail)
         if rc != 0:
-            raise RuntimeError("wave_lanes: kernel launch failed: "
+            raise RuntimeError(f"wave_lanes: {layout} kernel launch failed: "
                                + lib.wave_error_string(rc).decode())
-        wave_lanes.launches += 1
-    res = {nm: out[i] for i, nm in enumerate(OUT_FIELDS)}
+        count_launch(wave_lanes, layout)
     res["overflow"] = res["overflow"] != 0
     res["pool"] = pool
     return res
 
 
+def lane_device_kinds(fn, tensors):
+    """'cpu' or 'cuda': the one device type of all the tensors given."""
+    kinds = {t.device.type for t in tensors}
+    if kinds in ({"cpu"}, {"cuda"}):
+        return kinds.pop()
+    raise ValueError(f"{fn}: tensors on {sorted(kinds)}; they must all lie "
+                     f"on the CPU or all on one CUDA device")
+
+
 def wave_lanes(abase, bbase, mida, k0, aoffp, boffp, A, B, ts, pave, msc,
-               dsc, *, W, P, reverse, max_waves=MAX_WAVES):
+               dsc, *, W, P, reverse, layout="plain", record=None,
+               max_waves=MAX_WAVES):
     """Run one wave direction for N lanes.
 
     abase, bbase, mida (seed antidiagonal), k0 (seed diagonal), aoffp,
     boffp: int32 [N].  A, B: uint8 sequence memory, sentinel 4 around every
     read.  ts, pave, msc, dsc: the AlignSpec's trace spacing, ave_path,
-    mscore and dscore.  Returns a dict of int32 [N] tensors (OUT_FIELDS;
-    ``overflow`` is bool) plus ``pool``, int32 [N, P, 4] pebble cells
-    (ptr, diag, diff, mark), valid below ``avail``.
+    mscore and dscore.  layout: one of LAYOUTS (the kernel; all compute the
+    same result).  record: for the packed layout, the lanes' ready-made
+    (N, NREC_IN) int32 input record on the card (``pack_record``), which the
+    kernel then reads in place of the six lane tensors.  Returns a dict of
+    int32 [N] tensors (OUT_FIELDS; ``overflow`` is bool) plus ``pool``,
+    int32 [N, P, 4] pebble cells (ptr, diag, diff, mark), valid below
+    ``avail``; the packed layout also returns its raw (N, NREC_OUT)
+    output ``record``.
 
     CPU tensors run the plain PyTorch version; CUDA tensors launch the
-    kernel (and count the launch in ``wave_lanes.launches``)."""
+    layout's kernel and count the launch in
+    ``wave_lanes.launches_<layout>``."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"wave_lanes: layout must be one of {LAYOUTS}, got "
+                         f"{layout!r}")
+    if record is not None and layout != "packed":
+        raise ValueError("wave_lanes: a record is the packed layout's input")
     ins = (abase, bbase, mida, k0, aoffp, boffp)
-    kinds = {t.device.type for t in ins + (A, B)}
-    if kinds == {"cpu"}:
+    extra = () if record is None else (record,)
+    if lane_device_kinds("wave_lanes", ins + extra + (A, B)) == "cpu":
         return wave_lanes_ref(*ins, A, B, ts, pave, msc, dsc, W=W, P=P,
                               reverse=reverse, max_waves=max_waves)
-    if kinds != {"cuda"}:
-        raise ValueError(f"wave_lanes: tensors on {sorted(kinds)}; they must "
-                         f"all lie on the CPU or all on one CUDA device")
-    return _launch(ins, A, B, ts, pave, msc, dsc, W, P, reverse, max_waves)
+    return _launch(ins, A, B, ts, pave, msc, dsc, W, P, reverse, max_waves,
+                   layout, record)
 
 
-wave_lanes.launches = 0
+wave_lanes.launches_plain = 0
+wave_lanes.launches_packed = 0
+wave_lanes.launches_lanepack = 0

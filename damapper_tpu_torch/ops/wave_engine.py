@@ -1,5 +1,5 @@
 """Batched Local_Alignment over many seeds: the host shell around the wave
-kernel (ops.wave_cuda.wave_lanes).
+kernels (ops.wave_cuda.wave_lanes, ops.wave_persistent.wave_lanes_persistent).
 
 Per round of seeds (one pending seed per live candidate, pipeline.reporter):
 forward wave of every lane -> host trace extraction -> reverse wave from
@@ -9,10 +9,22 @@ overflowed (band, pool or wave cap) re-aligned by the host oracle
 (ops.wave.local_alignment, bit-identical), as are whole rounds smaller than
 ``host_min`` lanes.  Each wave direction of a round is ONE kernel launch
 over all its lanes.
+
+The mode is chosen as the JAX package chooses it (explicit argument, then
+the environment): classic (wave_lanes, the default) or persistent
+(DAMAPPER_WAVE_PERSISTENT=1: wave_lanes_persistent, each lane against its
+sequence windows), each in one of three layouts of the lane state, which
+pick the kernel: plain, packed (DAMAPPER_WAVE_PACKOPS=1) or lane-packed
+(DAMAPPER_WAVE_LANEPACK=1, which wins over packed).  In persistent mode the
+lanes a persistent kernel flags as overflowed (most often a window miss) are
+re-run on the classic kernel of the same layout at the same band before any
+of them reaches the oracle (the JAX engine's retry tier and its classic
+twin, wave_pallas.py:2369-2416).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 
@@ -20,8 +32,12 @@ import numpy as np
 import torch
 
 from . import wave as _host
+from . import wave_cuda as _wc
+from . import wave_persistent as _wp
 from .spec import AlignSpec
-from .wave_cuda import OUT_FIELDS, wave_lanes
+from .wave_cuda import NREC_IN, OUT_FIELDS, wave_lanes
+from .wave_persistent import (persistent_windows, wave_lanes_persistent,
+                              window_length)
 
 
 @dataclass
@@ -54,20 +70,42 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _switch(arg, env) -> bool:
+    """An engine switch: the explicit argument, else the environment
+    variable (on when it is "1"), else off."""
+    if arg is not None:
+        return bool(arg)
+    return os.environ.get(env, "0") == "1"
+
+
 class WaveEngine:
     """Batched device Local_Alignment with host oracle fallback.
 
-    band_cap (W): ring band capacity, 128 on the card and 64 on the CPU
-    by default.  pool_cap: the most pebble rows a lane may use; each round
-    sizes its pool from its longest a-read.  host_min: rounds with fewer
-    lanes run on the host oracle."""
+    band_cap (W): ring band capacity; by default 128 for the classic plain
+    and packed kernels on the card, else 64 (the JAX engine's defaults).
+    pool_cap: the most pebble rows a lane may use; each round sizes its pool
+    from its longest a-read.
+    host_min: rounds with fewer lanes run on the host oracle.  persistent,
+    packops, lanepack: the wave mode (None: DAMAPPER_WAVE_PERSISTENT,
+    DAMAPPER_WAVE_PACKOPS, DAMAPPER_WAVE_LANEPACK)."""
 
     def __init__(self, spec: AlignSpec, band_cap: int | None = None,
-                 pool_cap: int = 2048, device=None, host_min: int = 16):
+                 pool_cap: int = 2048, device=None, host_min: int = 16,
+                 persistent=None, packops=None, lanepack=None):
         self.spec = spec
         self.device = resolve_device(device)
+        self.persistent = _switch(persistent, "DAMAPPER_WAVE_PERSISTENT")
+        packops = _switch(packops, "DAMAPPER_WAVE_PACKOPS")
+        lanepack = _switch(lanepack, "DAMAPPER_WAVE_LANEPACK")
+        self.layout = ("lanepack" if lanepack else
+                       "packed" if packops else "plain")
+        self.mode = (("persistent" if self.persistent else "classic")
+                     + {"plain": "", "packed": "+packops",
+                        "lanepack": "+lanepack"}[self.layout])
         if band_cap is None:
-            band_cap = 128 if self.device.type == "cuda" else 64
+            band_cap = 128 if (self.device.type == "cuda"
+                               and not self.persistent
+                               and self.layout != "lanepack") else 64
         self.W = band_cap
         self.P = pool_cap
         self.host_min = host_min
@@ -77,6 +115,11 @@ class WaveEngine:
         self.n_fallback = 0
         self.n_total = 0
         self.n_hostmin = 0      # lanes routed to the host oracle (tiny rounds)
+        self.n_winmiss = 0      # persistent-mode lanes retried on classic
+        self._L = 0             # persistent window length of the round
+        # kernel launches made by this engine, by kernel
+        self.launches = dict.fromkeys((*_wc.KERNEL_NAMES.values(),
+                                       *_wp.KERNEL_NAMES.values()), 0)
         self.total_waves = 0    # summed per-lane wave counts (telemetry)
         self.t_run = 0.0        # seconds inside _run (device + pull wait)
         self.t_batch = 0.0      # seconds inside local_alignment_batch
@@ -91,13 +134,45 @@ class WaveEngine:
              Adev, Bdev, sortkey=None) -> WaveResult:
         _t0 = time.perf_counter()
         try:
-            return self._launch_and_pull(which, abase, bbase, mida, k0,
-                                         aoffp, boffp, Adev, Bdev, sortkey)
+            res = self._launch_and_pull(which, abase, bbase, mida, k0,
+                                        aoffp, boffp, Adev, Bdev, sortkey,
+                                        persistent=self.persistent)
+            if self.persistent:
+                res = self._retry_classic(
+                    res, which, (abase, bbase, mida, k0, aoffp, boffp),
+                    Adev, Bdev, sortkey)
+            return res
         finally:
             self.t_run += time.perf_counter() - _t0
 
+    def _retry_classic(self, res, which, lanes, Adev, Bdev, sortkey):
+        """Re-run the lanes a persistent kernel flagged on the classic
+        kernel of the same layout at the same band: the classic kernel
+        reads the whole sequence memory, so only its own overflows reach
+        the oracle."""
+        bad = np.flatnonzero(res.overflow)
+        if len(bad) == 0:
+            return res
+        sub = self._launch_and_pull(
+            which, *(np.asarray(x)[bad] for x in lanes), Adev, Bdev,
+            None if sortkey is None else np.asarray(sortkey)[bad],
+            persistent=False)
+        self.n_winmiss += len(bad)
+        # telemetry: the retried lanes count the classic run's waves only
+        self.total_waves -= int(res.waves[bad].sum())
+        width = max(res.pool.shape[1], sub.pool.shape[1])
+        for fld in res.__dataclass_fields__:
+            arr, new = getattr(res, fld), getattr(sub, fld)
+            if fld == "pool":
+                arr, new = (np.pad(a, ((0, 0), (0, width - a.shape[1]),
+                                       (0, 0))) for a in (arr, new))
+                res.pool = arr
+            arr[bad] = new
+        return res
+
     def _launch_and_pull(self, which, abase, bbase, mida, k0, aoffp, boffp,
-                         Adev, Bdev, sortkey=None) -> WaveResult:
+                         Adev, Bdev, sortkey=None,
+                         persistent=False) -> WaveResult:
         P = self._activeP
         n = len(abase)
         if n == 0:
@@ -116,20 +191,52 @@ class WaveEngine:
                 (abase, bbase, mida, k0, aoffp, boffp)]
         if order is not None:
             args = [x[order] for x in args]
-        ins = [torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-               for x in args]
+        reverse = which == "rev"
+        if persistent:
+            args += [w.numpy() for w in persistent_windows(
+                *(torch.from_numpy(x) for x in args[:4]), Adev.shape[0],
+                Bdev.shape[0], self._L, reverse)]
+        # the lane inputs go up in one copy: the packed layout's (n, 8)
+        # records, else the rows of one array
+        kw = {}
+        if self.layout == "packed":
+            rec = np.zeros((n, NREC_IN), np.int32)
+            rec[:, :len(args)] = np.stack(args, 1)
+            kw["record"] = torch.from_numpy(rec).to(self.device)
+            ins = list(kw["record"].unbind(1))
+        else:
+            ins = list(torch.from_numpy(np.stack(args)).to(self.device))
         timed = self.device.type == "cuda"
         if timed:
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
             ev0.record()
-        out = wave_lanes(*ins, Adev, Bdev, *self._consts, W=self.W, P=P,
-                         reverse=(which == "rev"))
+        # launches are counted on the wrappers themselves (_wc, _wp), which
+        # a test may stand in for with its own function
+        consts = dict(zip(("ts", "pave", "msc", "dsc"), self._consts))
+        cnt = "launches_" + self.layout
+        if persistent:
+            real, names = _wp.wave_lanes_persistent, _wp.KERNEL_NAMES
+            before = getattr(real, cnt)
+            out = wave_lanes_persistent(
+                *ins[:6], Adev, Bdev, **consts, W=self.W, P=P, L=self._L,
+                reverse=reverse, layout=self.layout, awst=ins[6],
+                bwst=ins[7], **kw)
+        else:
+            real, names = _wc.wave_lanes, _wc.KERNEL_NAMES
+            before = getattr(real, cnt)
+            out = wave_lanes(*ins[:6], Adev, Bdev, **consts, W=self.W, P=P,
+                             reverse=reverse, layout=self.layout, **kw)
+        self.launches[names[self.layout]] += getattr(real, cnt) - before
         if timed:
             ev1.record()
-        # one pull per field group; the pool only up to the longest chain
-        scal = torch.stack([out[f].to(torch.int32) for f in OUT_FIELDS]
-                           ).cpu().numpy()
+        # one pull per field group (the packed layout's whole output record
+        # in one copy); the pool only up to the longest chain
+        if "record" in out:
+            scal = out["record"].cpu().numpy().T[:len(OUT_FIELDS)]
+        else:
+            scal = torch.stack([out[f].to(torch.int32) for f in OUT_FIELDS]
+                               ).cpu().numpy()
         top = int(min(P, max(2, int(scal[OUT_FIELDS.index("avail")].max()))))
         pool = out["pool"][:, :top].cpu().numpy()
         if timed:
@@ -171,6 +278,9 @@ class WaveEngine:
         if n < self.host_min:
             self.n_hostmin += n
             return [self._oracle(Anp, Bnp, s) for s in seeds]
+        if self.persistent:
+            # one window length for the whole round and its redo rounds
+            self._L = window_length(max(s["alen"] for s in seeds))
 
         # pool bucket: pebbles per lane are bounded by the aligned span
         # (two trace lines per TS columns on each side of a < 2*alen-wide
@@ -344,12 +454,13 @@ def _reach_select(res: WaveResult, i: int, reach: bool):
 
 def local_alignment_batch(spec: AlignSpec, Anp, Bnp, seeds, device=None,
                           host_min: int = 16, band_cap=None,
-                          pool_cap: int = 2048):
+                          pool_cap: int = 2048, **mode):
     """One-shot batched Local_Alignment: uploads the sequence memories to
-    ``device`` (None: the CUDA card) and aligns every seed.  Returns
-    (list of (apath, bpath), engine)."""
+    ``device`` (None: the CUDA card) and aligns every seed.  mode: the
+    engine's persistent/packops/lanepack switches.  Returns (list of
+    (apath, bpath), engine)."""
     eng = WaveEngine(spec, band_cap=band_cap, pool_cap=pool_cap,
-                     device=device, host_min=host_min)
+                     device=device, host_min=host_min, **mode)
     Adev = eng.upload(Anp)
     Bdev = Adev if Bnp is Anp else eng.upload(Bnp)
     return eng.local_alignment_batch(Adev, Bdev, Anp, Bnp, seeds), eng

@@ -63,12 +63,16 @@ class DamapperConfig:
     no card that is an error unless the caller passes device="cpu".
     wave_backend: "device" (the batched wave engine on ``device``) or
     "oracle" (the host Local_Alignment, one seed at a time).  host_min:
-    wave rounds with fewer lanes run on the host oracle."""
+    wave rounds with fewer lanes run on the host oracle.  persistent,
+    packops, lanepack: the wave engine's mode (None: the environment's
+    DAMAPPER_WAVE_PERSISTENT, DAMAPPER_WAVE_PACKOPS, DAMAPPER_WAVE_LANEPACK;
+    see ops.wave_engine)."""
 
     def __init__(self, kmer=20, suppress=0, mem_limit=None, ave_error=.85,
                  spacing=100, best_tie=1.0, masks=(), verbose=False,
                  profile=False, do_a=True, do_b=False, map_order=True,
-                 wave_backend="device", device=None, host_min=16):
+                 wave_backend="device", device=None, host_min=16,
+                 persistent=None, packops=None, lanepack=None):
         self.kmer = kmer
         self.suppress = suppress
         self.mem_limit = _physical_memory() if mem_limit is None else mem_limit
@@ -87,6 +91,8 @@ class DamapperConfig:
         self.wave_backend = wave_backend
         self.device = resolve_device(device)
         self.host_min = host_min
+        self.wave_mode = dict(persistent=persistent, packops=packops,
+                              lanepack=lanepack)
 
 
 def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
@@ -203,7 +209,8 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
 
     engine = None
     if cfg.wave_backend == "device":
-        engine = WaveEngine(spec, device=cfg.device, host_min=cfg.host_min)
+        engine = WaveEngine(spec, device=cfg.device, host_min=cfg.host_min,
+                            **cfg.wave_mode)
     rep = Reporter(spec, cfg.kmer, cfg.spacing, cfg.best_tie,
                    do_a=cfg.do_a, do_b=cfg.do_b, engine=engine)
     profile_out = [] if cfg.profile else None
@@ -220,8 +227,10 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
             # fallback would destroy device perf while keeping output
             # identical
             ndev = engine.n_total - engine.n_fallback - engine.n_hostmin
-            print(f"      wave lanes: {engine.n_total:,} total, "
-                  f"{ndev:,} device, {engine.n_fallback:,} overflow-fallback, "
+            print(f"      wave mode {engine.mode} (W={engine.W}); lanes: "
+                  f"{engine.n_total:,} total, {ndev:,} device, "
+                  f"{engine.n_winmiss:,} retried on the classic kernel, "
+                  f"{engine.n_fallback:,} overflow-fallback, "
                   f"{engine.n_hostmin:,} tiny-round host", file=sys.stderr)
 
     a_path = b_path = None
@@ -248,7 +257,8 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
     # cell-updates metric is waves x band-capacity, the batched analog of
     # the reference's WAVE_STATS counters (align.c:297-312).  The keys are
     # the JAX package's, plus the tiny-round host lanes and the summed
-    # kernel time (CUDA events; 0 off the card)
+    # kernel time (CUDA events; 0 off the card), the wave mode and the
+    # launches of each kernel
     global LAST_STATS
     LAST_STATS = dict(times=dict(times),
                       ref_index_cache_hits=0,
@@ -258,7 +268,9 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
                       cell_updates=(getattr(engine, "total_waves", 0)
                                     * getattr(engine, "W", 0)),
                       n_fallback=getattr(engine, "n_fallback", 0),
-                      n_winmiss=0,      # this engine has no window
+                      n_winmiss=getattr(engine, "n_winmiss", 0),
+                      wave_mode=getattr(engine, "mode", "oracle"),
+                      kernel_launches=dict(getattr(engine, "launches", {})),
                       n_lanes=getattr(engine, "n_total", 0),
                       n_hostmin=getattr(engine, "n_hostmin", 0),
                       kernel_ms=getattr(engine, "kernel_ms", 0.),
@@ -311,7 +323,9 @@ def expand_db_block_arg(arg: str) -> list[str]:
 
 def main_damapper(argv: list[str]) -> int:
     """CLI with the reference's flag surface (damapper.c:53-56).  The wave
-    engine runs on the CUDA card; DAMAPPER_DEVICE=cpu runs it on the CPU."""
+    engine runs on the CUDA card; DAMAPPER_DEVICE=cpu runs it on the CPU.
+    The DAMAPPER_WAVE_{PERSISTENT,PACKOPS,LANEPACK} switches pick the wave
+    mode (ops.wave_engine)."""
     kw = dict()
     args = []
     flags = set()

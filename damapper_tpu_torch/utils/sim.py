@@ -3,7 +3,9 @@
 ``sim_genome`` and ``sim_read`` draw exactly what the JAX package's test
 helpers draw from the same numpy generator, so one seed gives both packages
 the same dataset.  ``make_lane_cases`` builds a sentinel-separated sequence
-memory plus one seed per read, the layout a loaded DB gives the wave.
+memory plus one seed per read, the layout a loaded DB gives the wave;
+``make_long_lane_cases`` the same for long reads, with the window length the
+persistent kernels give them.
 """
 
 from __future__ import annotations
@@ -109,3 +111,15 @@ def make_lane_cases(seed, ncases, glen=6000, rlen=2500, err=0.15, mix=False,
                           diag=apos - bp, anti=apos + bp, flags=0))
     flat.append(np.array([4], np.uint8))
     return np.concatenate(flat), insts
+
+
+def make_long_lane_cases(seed, ncases, rmin=40_000, rlen=45_000, err=0.15):
+    """Lanes of long reads (lengths drawn from [rmin, rlen]) on a genome
+    four times the longest read, for the persistent kernels' large windows.
+    Returns (seqmem, insts, L): make_lane_cases' pair plus the window
+    length that covers every extension of the longest read (the B side
+    here), which above ~63 kb no longer fits a block's shared memory."""
+    from ..ops.wave_persistent import window_length
+    seqmem, insts = make_lane_cases(seed, ncases, glen=4 * rlen, rlen=rlen,
+                                    err=err, mix=True, rmin=rmin)
+    return seqmem, insts, window_length(max(s["blen"] for s in insts))

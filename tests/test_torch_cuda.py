@@ -1,4 +1,4 @@
-"""The CUDA wave kernel against its plain PyTorch version, on the card.
+"""The CUDA wave kernels against their plain PyTorch versions, on the card.
 
 These tests need a CUDA card and skip without one.  They import nothing of
 JAX, so they run on a machine that has only PyTorch:
@@ -11,8 +11,12 @@ import torch
 
 from damapper_tpu_torch.convert import lanes_from_numpy
 from damapper_tpu_torch.ops.spec import new_align_spec
-from damapper_tpu_torch.ops.wave_cuda import (OUT_FIELDS, wave_lanes,
+from damapper_tpu_torch.ops.wave_cuda import (IN_FIELDS, LAYOUTS, OUT_FIELDS,
+                                              pack_record, wave_lanes,
                                               wave_lanes_ref)
+from damapper_tpu_torch.ops.wave_persistent import (
+    persistent_windows, wave_lanes_persistent, wave_lanes_persistent_ref,
+    window_length)
 from damapper_tpu_torch.utils.sim import make_lane_cases
 
 SPEC = new_align_spec(0.85, 100, [.25, .25, .25, .25], True)
@@ -30,20 +34,64 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
 def test_wave_kernel_matches_plain_version_on_card(cuda_device, reverse):
-    """The CUDA kernel equals the plain version on the same CUDA tensors,
-    at W=128 (the card's band) and W=64."""
-    seqmem, insts = make_lane_cases(1000, 8, err=0.15)
+    """Each classic kernel (plain, packed, lanepack) equals the plain
+    version on the same CUDA tensors, at W=128 (the card's band) and W=64
+    (lanepack: W=64 only).  Seven lanes: the last lane-packed block has one
+    idle half.  The packed kernel also takes a ready-made record."""
+    seqmem, insts = make_lane_cases(1000, 7, err=0.15)
     lanes = lanes_from_numpy(insts, seqmem, cuda_device)
     for w in (64, 128):
         args = dict(ts=CONSTS[0], pave=CONSTS[1], msc=CONSTS[2],
                     dsc=CONSTS[3], W=w, P=P, reverse=reverse)
-        launches = wave_lanes.launches
-        k = wave_lanes(**lanes, **args)
-        torch.cuda.synchronize()
-        assert wave_lanes.launches == launches + 1
         r = wave_lanes_ref(**lanes, **args)
-        for f in OUT_FIELDS:
-            assert torch.equal(k[f], r[f]), f
-        for i in range(len(insts)):
-            av = int(r["avail"][i])
-            assert torch.equal(k["pool"][i, :av], r["pool"][i, :av]), i
+        rec = pack_record([lanes[nm] for nm in IN_FIELDS])
+        runs = [(lay, {}) for lay in LAYOUTS if w == 64 or lay != "lanepack"]
+        for layout, kw in runs + [("packed", dict(record=rec))]:
+            cnt = "launches_" + layout
+            launches = getattr(wave_lanes, cnt)
+            k = wave_lanes(**lanes, **args, layout=layout, **kw)
+            torch.cuda.synchronize()
+            assert getattr(wave_lanes, cnt) == launches + 1
+            _assert_equal(k, r, len(insts))
+
+
+def _assert_equal(k, r, n):
+    for f in OUT_FIELDS:
+        assert torch.equal(k[f], r[f]), f
+    for i in range(n):
+        av = int(r["avail"][i])
+        assert torch.equal(k["pool"][i, :av], r["pool"][i, :av]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("small", [False, True], ids=["L", "L1024"])
+def test_persistent_kernels_match_plain_version_on_card(cuda_device, reverse,
+                                                        small):
+    """Each persistent kernel (plain, packed, lanepack; packed also from a
+    ready-made record), on both window routes (shared memory and in place),
+    equals the plain version on the same CUDA tensors.  Seven lanes of
+    0.3-2.5 kb reads: the lane-packed blocks pair lanes that end far apart,
+    and the last block has one idle half.  L1024 is too small for the
+    longer reads: window misses."""
+    seqmem, insts = make_lane_cases(1000, 7, err=0.15, mix=True, rmin=300)
+    lanes = lanes_from_numpy(insts, seqmem, cuda_device)
+    L = 1024 if small else window_length(max(s["blen"] for s in insts))
+    args = dict(ts=CONSTS[0], pave=CONSTS[1], msc=CONSTS[2], dsc=CONSTS[3],
+                W=64, P=P, L=L, reverse=reverse)
+    r = wave_lanes_persistent_ref(**lanes, **args)
+    assert r["overflow"].any() == small
+    aw, bw = persistent_windows(lanes["abase"], lanes["bbase"], lanes["mida"],
+                                lanes["k0"], len(seqmem), len(seqmem), L,
+                                reverse)
+    rec = pack_record([lanes[nm] for nm in IN_FIELDS] + [aw, bw])
+    runs = [(lay, {}) for lay in LAYOUTS] + [("packed", dict(record=rec))]
+    for layout, kw in runs:
+        for smem in (True, False):
+            cnt = "launches_" + layout
+            launches = getattr(wave_lanes_persistent, cnt)
+            k = wave_lanes_persistent(**lanes, **args, layout=layout,
+                                      window_in_smem=smem, **kw)
+            torch.cuda.synchronize()
+            assert getattr(wave_lanes_persistent, cnt) == launches + 1
+            _assert_equal(k, r, len(insts))

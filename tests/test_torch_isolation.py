@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import damapper_tpu_torch
-from damapper_tpu_torch.ops import wave_cuda, wave_engine
+from damapper_tpu_torch.ops import wave_cuda, wave_engine, wave_persistent
 from damapper_tpu_torch.pipeline import mapper
 
 PKG = pathlib.Path(damapper_tpu_torch.__file__).resolve().parent
@@ -85,13 +85,52 @@ def test_wave_lanes_cuda_request_without_card_raises(monkeypatch):
 
     monkeypatch.setattr(wave_cuda, "wave_lanes_ref", no_plain)
     t = _CudaTyped()
-    launches = wave_cuda.wave_lanes.launches
+    for layout in wave_cuda.LAYOUTS:
+        cnt = "launches_" + layout
+        launches = getattr(wave_cuda.wave_lanes, cnt)
+        kw = dict(W=64, P=512, reverse=False, layout=layout)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            wave_cuda.wave_lanes(t, t, t, t, t, t, t, t, 100, 50, 100, 900,
+                                 **kw)
+        # a CPU sequence memory with CUDA lane inputs is no CPU request
+        # either
+        cpu = torch.zeros(8, dtype=torch.uint8)
+        with pytest.raises(ValueError, match="all lie on the CPU"):
+            wave_cuda.wave_lanes(t, t, t, t, t, t, cpu, cpu, 100, 50, 100,
+                                 900, **kw)
+        assert getattr(wave_cuda.wave_lanes, cnt) == launches
+
+
+@pytest.mark.parametrize("layout", wave_persistent.LAYOUTS)
+def test_wave_lanes_persistent_cuda_request_without_card_raises(monkeypatch,
+                                                               layout):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_plain(*a, **kw):
+        raise AssertionError("the plain version ran for a CUDA request")
+
+    monkeypatch.setattr(wave_persistent, "wave_lanes_persistent_ref",
+                        no_plain)
+    monkeypatch.setattr(wave_persistent, "wave_lanes_ref", no_plain)
+    t = _CudaTyped()
+    ins = (t, t, t, t, t, t)
+    kw = dict(W=64, P=512, L=2048, reverse=False, layout=layout,
+              awst=t, bwst=t)
+    cnt = "launches_" + layout
+    launches = getattr(wave_persistent.wave_lanes_persistent, cnt)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        wave_cuda.wave_lanes(t, t, t, t, t, t, t, t, 100, 50, 100, 900,
-                             W=128, P=512, reverse=False)
-    # a CPU sequence memory with CUDA lane inputs is no CPU request either
+        wave_persistent.wave_lanes_persistent(*ins, t, t, 100, 50, 100, 900,
+                                              **kw)
     cpu = torch.zeros(8, dtype=torch.uint8)
     with pytest.raises(ValueError, match="all lie on the CPU"):
-        wave_cuda.wave_lanes(t, t, t, t, t, t, cpu, cpu, 100, 50, 100, 900,
-                             W=128, P=512, reverse=False)
-    assert wave_cuda.wave_lanes.launches == launches
+        wave_persistent.wave_lanes_persistent(*ins, cpu, cpu, 100, 50, 100,
+                                              900, **kw)
+    assert getattr(wave_persistent.wave_lanes_persistent, cnt) == launches
+
+
+def test_persistent_engine_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        wave_engine.WaveEngine(None, persistent=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mapper.DamapperConfig(persistent=True, lanepack=True)
