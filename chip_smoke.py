@@ -7,9 +7,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
   1. device   — the card's name, count, and nvidia-smi name and power limit;
                 no card is a failure.
-  2. build    — nvcc builds csrc/wave.cu and csrc/wave_persistent.cu for
-                sm_90a, each in its own process (ptxas reports printed),
-                while g++ builds the native host libraries.
+  2. build    — nvcc builds csrc/wave.cu, csrc/wave_persistent.cu and
+                csrc/probes.cu for sm_90a, each in its own process (ptxas
+                reports printed), while g++ builds the native host
+                libraries.
   3. kernel   — every wave kernel against its plain PyTorch version on the
                 same CUDA tensors (tolerance 0: integer outputs; every
                 output field and every pool cell below avail), both
@@ -22,6 +23,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 longer fit shared memory) and on the 3-9 kb reads with a
                 window too small for them (misses), on the 3-9 kb reads by
                 both window routes.
+                Then the three op-cost probe kernels (csrc/probes.cu, the
+                loops of tools/mosaic_{floor,ops,carry}.py): every pattern
+                against its plain version on seeded int32 inputs at G=9,
+                W=64 and W=128 under both barrier policies, at the tools'
+                G=128 rows under the half barrier (W=64), and on the
+                launches timed for the kernels line (G=128, W=128, block;
+                tolerance 0), the SASS of every instantiation checked for
+                the pattern's instructions, and the three probe tools run
+                at their full shapes (their path; records under a
+                temporary directory), ns per application and bound printed
+                per pattern.
   4. mapping  — the damapper path (host index and seed match, native chain
                 sweep, reporter, wave engine on the card) on BASELINE
                 config 1: a 4.6 Mb reference in contigs and 1,000 simulated
@@ -37,8 +49,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 six modes and with the host oracle: identical .las records
                 and -p track bytes.
   6. kernels  — one JSON line with each ported kernel's launches on its
-                mapping run, its agreement with the plain version, and its
-                time beside its bound and the plain version's time.
+                path's run (a wave kernel's mapping run; the probe tools'
+                run), its agreement with the plain version, and its time
+                beside its bound and the plain version's time.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -58,10 +71,9 @@ import time
 import numpy as np
 
 HERE = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
-# H100 SXM float32 peak outside the tensor cores (data sheet); its int32
-# rate is no higher, so the time from this rate stays a lower bound
-OPS_PER_S = 67e12
+# ~10 ms of device spin queued ahead of the timed calls: the host enqueues
+# all of them meanwhile, so the events time the kernels alone
+LEAD_CYCLES = 20_000_000
 
 
 class SmokeFailure(RuntimeError):
@@ -95,11 +107,12 @@ def phase_device(torch):
 def phase_build():
     phase("2 build")
     from damapper_tpu_torch import native
-    from damapper_tpu_torch.ops import wave_cuda, wave_persistent
+    from damapper_tpu_torch.ops import probes, wave_cuda, wave_persistent
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(5) as ex:
+    with concurrent.futures.ThreadPoolExecutor(6) as ex:
         jobs = [ex.submit(wave_cuda.build, True),
                 ex.submit(wave_persistent.build, True),
+                ex.submit(probes.build, True),
                 ex.submit(native.kmer_lib), ex.submit(native.chain_lib),
                 ex.submit(native.radix_lib)]
         for j in jobs:
@@ -109,11 +122,13 @@ def phase_build():
 
 def _cuda_ms(torch, fn, reps=7):
     """Median time of one call of fn (CUDA events around each of `reps`
-    calls, after one warm-up call), and the last call's result."""
+    calls, after one warm-up call and behind a LEAD_CYCLES spin), and the
+    last call's result."""
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(LEAD_CYCLES)
     for e0, e1 in ev:
         e0.record()
         out = fn()
@@ -129,6 +144,7 @@ def _bound(lanes, out):
     operation per byte it compares.  The same for every kernel: a
     persistent kernel's window staging is its design's cost, not the
     function's.  Returns (ms, "bytes"|"operations")."""
+    from damapper_tpu_torch.peaks import HBM_BYTES_PER_S, INT32_OPS_PER_S
     mida = lanes["mida"].cpu().numpy().astype(np.int64)
     k0 = lanes["k0"].cpu().numpy().astype(np.int64)
     o = {f: out[f].cpu().numpy().astype(np.int64)
@@ -142,8 +158,25 @@ def _bound(lanes, out):
     n = len(mida)
     nbytes = 6 * 4 * n + seq + 14 * 4 * n + 16 * int(o["avail"].sum())
     nops = seq + int(o["waves"].sum())
-    tb, to = nbytes / HBM_BYTES_PER_S, nops / OPS_PER_S
+    tb, to = nbytes / HBM_BYTES_PER_S, nops / INT32_OPS_PER_S
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def _path_per_wave(lanes, out):
+    """(waves, sequence columns advanced per wave) of the lane with the
+    most waves: the wave count that sets a launch's time, and the
+    end-to-end advance of that lane's path, in bases of A and B over 2."""
+    mida = lanes["mida"].cpu().numpy().astype(np.int64)
+    k0 = lanes["k0"].cpu().numpy().astype(np.int64)
+    o = {f: out[f].cpu().numpy().astype(np.int64)
+         for f in ("trima", "trimy", "morem", "morea", "morey", "waves")}
+    i = int(np.argmax(o["waves"]))
+    reach = o["morem"][i] >= 0
+    ye = o["morey"][i] if reach else o["trimy"][i]
+    xe = (o["morea"][i] if reach else o["trima"][i]) - ye
+    x0, y0 = (mida[i] + k0[i]) // 2, (mida[i] - k0[i]) // 2
+    w = int(o["waves"][i])
+    return w, (abs(xe - x0) + abs(ye - y0)) / 2 / max(w, 1)
 
 
 def _mismatch(torch, k, r):
@@ -205,8 +238,9 @@ def phase_kernel(torch, seed):
                 r = wave_lanes_ref(**lanes, **args)
                 torch.cuda.synchronize()
                 pms = 1e3 * (time.time() - t0)
+                wmax, cols = _path_per_wave(lanes, r)
                 line = [f"{nm} {d} W={W}: {len(insts)} lanes, waves max "
-                        f"{int(r['waves'].max())}, overflow "
+                        f"{wmax} ({cols:.3f} columns per wave), overflow "
                         f"{int(r['overflow'].sum())}, plain {pms:.1f} ms"]
                 for lay in LAYOUTS:
                     if lay == "lanepack" and W != 64:
@@ -348,6 +382,225 @@ def phase_persistent_kernels(torch, seed):
                         bound_ms=float(np.mean(q["bound_ms"])),
                         bound_by=q["bound_by"][0])
     return out
+
+
+# the probe kernels and the TPU kernels' pallas_calls they replace
+PROBES = {"probe_floor": "tools/mosaic_floor.py:62",
+          "probe_ops": "tools/mosaic_ops.py:123",
+          "probe_carry": "tools/mosaic_carry.py:44"}
+PROBE_CASES = ((64, "block"), (64, "half"), (128, "block"))
+PROBE_ROW_N = 100   # iterations of the launches timed for the kernels line
+
+# SASS the loop bodies of each pattern's kernel must hold: (regular
+# expression, least count); W-dependent counts are callables of W.  MNMX
+# matches VIMNMX and the fused VIADDMNMX; carry60 must add 1 to each of its
+# sixty carried registers on every trip of its loop.
+SASS_NEEDS = {
+    ("floor", "mix"): ((r"BAR\.SYNC", 2), (r"LDS", 1), (r"STS", 1),
+                       (r"MNMX", 1)),
+    ("floor", "add"): ((r"LOP3", 2), (r"IADD", 2)),
+    ("ops", "elemwise"): ((r"MNMX", 1),),
+    ("ops", "roll"): ((r"BAR\.SYNC", 2), (r"LDS", 1), (r"STS", 1)),
+    ("ops", "reduce_row"): ((r"SHFL", 5), (r"BAR\.SYNC", 2)),
+    ("ops", "reduce_scal"): ((r"SHFL", 5), (r"BAR\.SYNC", 2)),
+    ("ops", "onehot_grab"): ((r"SHFL", 5), (r"BAR\.SYNC", 2)),
+    ("ops", "scal_arith"): ((r"MNMX", 1),),
+    ("ops", "cond"): ((r"BAR\.RED", 1),),
+    ("ops", "butterfly"): ((r"BAR\.SYNC",
+                            lambda W: 2 * (W.bit_length() - 1)),
+                           (r"MNMX", 1)),
+    ("carry", "carry60"): ((r"(?:IADD3|VIADD)\s+(R\d+), \1, 0x1\b", 60),),
+    ("carry", "3d_minor4"): ((r"IADD", 2),),
+    ("carry", "concat2w"): ((r"IADD", 2),),
+    ("carry", "dbuf_write"): ((r"SHFL", 5), (r"BAR\.SYNC", 2), (r"STS", 1)),
+    ("carry", "dbuf_soa"): ((r"SHFL", 5), (r"BAR\.SYNC", 2), (r"STS", 1)),
+}
+
+
+def _loop_ops(text):
+    """The instructions of a kernel's SASS that lie in a loop: between a
+    backward branch and its target."""
+    import re
+    rows = [(int(m.group(1), 16), m.group(2)) for m in
+            (re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+             for ln in text.splitlines()) if m]
+    loops = [(int(m.group(1), 16), addr) for addr, op in rows
+             for m in [re.search(r"\bBRA\s+0x([0-9a-f]+)", op)]
+             if m and int(m.group(1), 16) <= addr]
+    return [op for addr, op in rows if any(a <= addr <= b for a, b in loops)]
+
+
+def _probe_names(probes):
+    return {"floor": probes.FLOOR_VARIANTS, "ops": probes.OPS_PATTERNS,
+            "carry": probes.CARRY_BODIES}
+
+
+def _probe_call(probes, kind, name, inp, n, barrier, plain=False):
+    """One probe launch (or its plain version) on inp, a (G, W) x or
+    (x, s); returns its outputs as a tuple."""
+    if kind == "floor":
+        return ((probes.floor_probe_ref(inp, n, 96, name),) if plain else
+                (probes.floor_probe(inp, n, 96, name, barrier),))
+    if kind == "ops":
+        return (probes.ops_probe_ref(*inp, n, 28, name) if plain else
+                probes.ops_probe(*inp, n, 28, name, barrier))
+    return (probes.carry_probe_ref(inp, n, name) if plain else
+            probes.carry_probe(inp, n, name, barrier))
+
+
+def _probe_sass(probes):
+    """Checks the loop bodies of every instantiation's SASS for its
+    pattern's instructions (nvcc must not have deleted or merged the work
+    being timed); prints the counts."""
+    import re
+    from damapper_tpu_torch.tools.wave_ab import sass_counts
+    sass = sass_counts(probes.build())
+    names = _probe_names(probes)
+    seen = 0
+    for sym, (cnt, text) in sorted(sass.items()):
+        m = re.search(r"(floor|ops|carry)_kernel", sym)
+        if not m:
+            continue
+        kind = m.group(1)
+        lits = re.findall(r"L[ib](\d+)E", sym)
+        W, pat = int(lits[0]), names[kind][int(lits[-1])]
+        bar = "half" if "HalfBar" in sym else "block"
+        ops = _loop_ops(text)
+        counts = {}
+        for op, least in SASS_NEEDS[(kind, pat)]:
+            counts[op] = sum(bool(re.search(op, ln)) for ln in ops)
+            need = least(W) if callable(least) else least
+            check(counts[op] >= need, f"SASS of {kind} {pat} W={W} {bar}: "
+                  f"{counts[op]} of {op} in its loops, the pattern needs "
+                  f"{need}")
+        print(f"sass {kind} {pat} W={W} {bar}: {cnt} instructions, "
+              f"{len(ops)} in loops: "
+              + ", ".join(f"{op} {c}" for op, c in counts.items()))
+        seen += 1
+    want = sum(len(v) for v in names.values()) * 3 + 2   # floor at W=256
+    check(seen == want, f"SASS of {seen} probe kernels found, {want} built")
+
+
+def phase_probes(torch, seed, work):
+    """The three probe kernels against their plain versions, their SASS,
+    then the probe tools at their full shapes (their path).  Returns the
+    kernels-line fields of each probe kernel and its launches in the tools'
+    run."""
+    phase("3 kernel vs plain version: probes")
+    t_phase = time.time()
+    from damapper_tpu_torch.ops import probes
+    from damapper_tpu_torch.tools import carry_probe, floor_probe, ops_probe
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    names = _probe_names(probes)
+    wrappers = {"floor": probes.floor_probe, "ops": probes.ops_probe,
+                "carry": probes.carry_probe}
+
+    def ints(shape):
+        return torch.from_numpy(rng.integers(-2**31, 2**31, shape,
+                                             dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    def inputs(kind, G, W, neg_s=False):
+        if kind != "ops":
+            return ints((G, W))
+        s = ints((G, 1))
+        return ints((G, W)), (-s.abs() if neg_s else s)
+
+    err = {k: 0 for k in names}
+
+    def compare(kind, name, k, r, where):
+        """Holds kernel outputs k against plain outputs r (tolerance 0)."""
+        torch.cuda.synchronize()
+        for a, b in zip(k, r):
+            check(a.shape == b.shape, f"{kind} {name} shapes")
+            e = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+            err[kind] = max(err[kind], e)
+            check(e == 0, f"probe {kind} {name} {where}: kernel and plain "
+                  f"version differ by {e}")
+
+    # G=9: the last half-barrier block has an idle half; G=128 under the
+    # half barrier: the tools' rows at the wave launch's W=64 (the kernels
+    # line below holds G=128, W=128, block)
+    for kind, pats in names.items():
+        cases = [(9, 5, W, bar) for W, bar in PROBE_CASES
+                 + (((256, "block"),) if kind == "floor" else ())]
+        cases.append((128, PROBE_ROW_N, 64, "half"))
+        for G, n, W, bar in cases:
+            for name in pats:
+                for neg in (False, True) if name == "cond" else (False,):
+                    inp = inputs(kind, G, W, neg)
+                    compare(kind, name,
+                            _probe_call(probes, kind, name, inp, n, bar),
+                            _probe_call(probes, kind, name, inp, n, bar,
+                                        plain=True), f"G={G} W={W} {bar}")
+        print(f"probe_{kind}: every pattern equal to the plain version at "
+              f"(G, n, W, barrier) {cases}", flush=True)
+    _probe_sass(probes)
+
+    # the path: the three tools at their full shapes
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.time()
+    outs = {}
+    for kind, tool in (("floor", floor_probe), ("ops", ops_probe),
+                       ("carry", carry_probe)):
+        outs[kind] = work / f"{kind}.jsonl"
+        check(tool.main(["--out", str(outs[kind])]) == 0,
+              f"the {kind} probe tool failed")
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"probe tools: {time.time() - t0:.1f}s, launches {launches}")
+    for kind, path in outs.items():
+        recs = [json.loads(ln) for ln in path.read_text().splitlines()]
+        check(recs and launches[kind] > 0, f"the {kind} tool launched "
+              f"nothing")
+        print(f"{kind} records on {recs[0]['device']}, "
+              f"{recs[0]['power_limit']}")
+        key = {"floor": "ns_per_op", "ops": "ns_per_app",
+               "carry": "us_per_iter"}[kind]
+        check(all(np.isfinite(r[key]) and np.isfinite(r["bound_ms"])
+                  for r in recs), f"the {kind} tool's records are not "
+              f"finite")
+        for r in recs:
+            if r["G"] == 128 or kind == "floor":
+                nm = r.get("variant") or r.get("pat") or r.get("name")
+                per = "" if key == "us_per_iter" else \
+                    f"{key} {r[key]:.4f}, "
+                print(f"{kind} {nm} G={r['G']} W={r['W']} {r['barrier']}: "
+                      f"{per}us/iter {r['us_per_iter']:.4f}, bound "
+                      f"{r['bound_ms']:.6f} ms")
+
+    # the kernels line: one launch per pattern at G=128, W=128, block
+    # barrier, PROBE_ROW_N iterations, timed, and its output held against
+    # the plain version's on the same inputs
+    out = {}
+    for kind, pats in names.items():
+        ms, pms, bms, bby = [], [], [], []
+        for name in pats:
+            inp = inputs(kind, 128, 128)
+            kms, k = _cuda_ms(torch, lambda: _probe_call(
+                probes, kind, name, inp, PROBE_ROW_N, "block"))
+            torch.cuda.synchronize()
+            t0 = time.time()
+            r = _probe_call(probes, kind, name, inp, PROBE_ROW_N, "block",
+                            plain=True)
+            torch.cuda.synchronize()
+            pms.append(1e3 * (time.time() - t0))
+            compare(kind, name, k, r, "G=128 W=128 block (timed)")
+            ms.append(kms)
+            b, by = probes.bound_ms(kind, name, 128, 128, PROBE_ROW_N)
+            bms.append(b)
+            bby.append(by)
+        print(f"probe_{kind} G=128 W=128 n={PROBE_ROW_N}: " + ", ".join(
+            f"{nm} {m:.4f} ms (plain {p:.1f}, bound {b:.6f})"
+            for nm, m, p, b in zip(pats, ms, pms, bms)))
+        out["probe_" + kind] = dict(
+            max_abs_err=err[kind], ms=float(np.mean(ms)),
+            plain_ms=float(np.mean(pms)), bound_ms=float(np.mean(bms)),
+            bound_by=max(set(bby), key=bby.count))
+    print(f"probe phase {time.time() - t_phase:.1f}s")
+    return out, {"probe_" + k: v for k, v in launches.items()}
 
 
 def _write_dataset(work, seed, glen, ncontigs, nreads, min_len, max_len,
@@ -567,10 +820,14 @@ def main(argv=None) -> int:
         kern[wave_persistent.KERNEL_NAMES[lay]] = k
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = pathlib.Path(tmp)
-        (tmp / "map").mkdir()
-        (tmp / "las").mkdir()
+        for d in ("probes", "map", "las"):
+            (tmp / d).mkdir()
+        probe_kern, probe_launches = phase_probes(torch, args.seed,
+                                                  tmp / "probes")
+        kern.update(probe_kern)
         launches = phase_mapping(torch, tmp / "map", args.seed, args.glen,
                                  args.nreads)
+        launches.update(probe_launches)
         phase_las(tmp / "las")
     phase("6 kernels")
     print(f"total {time.time() - t_start:.1f}s")
@@ -581,12 +838,14 @@ def main(argv=None) -> int:
             ("wave_persistent", "wave_persistent.cu", 2104),
             ("wave_persistent_packed", "wave_persistent.cu", 2031),
             ("wave_persistent_lanepack", "wave_persistent.cu", 1981)]
-    kernels = [dict(name=nm, route="cuda", source=src + f,
-                    replaces=f"damapper_tpu/ops/wave_pallas.py:{line}",
+    rows = [(nm, f, f"damapper_tpu/ops/wave_pallas.py:{line}")
+            for nm, f, line in rows]
+    rows += [(nm, "probes.cu", tpu) for nm, tpu in PROBES.items()]
+    kernels = [dict(name=nm, route="cuda", source=src + f, replaces=tpu,
                     launches=launches[nm],
                     match=kern[nm]["max_abs_err"] == 0, **kern[nm],
                     library_ms=None)
-               for nm, f, line in rows]
+               for nm, f, tpu in rows]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -179,6 +179,62 @@ __device__ __forceinline__ int block_reduce(int v, int* red, const Bar& bar,
   return r;
 }
 
+// ---------------------------------------------------------------------------
+// section clocks, built only with -DWAVE_SECTION_CLOCKS (tools/wave_clocks.py)
+// ---------------------------------------------------------------------------
+// Every slot reads clock64() at the end of each section of the lane and adds
+// the cycles since its last read to that section's counter; at the lane's end
+// slot 0 adds its counters to the lane's row of wave_section_clocks.  Slot 0
+// meets the lane's other slots at every barrier, so a section that ends in a
+// barrier counts the lane's time: slot 0's own work and its wait for the
+// slowest slot.  Without the macro the counters and reads are not compiled.
+
+#ifdef WAVE_SECTION_CLOCKS
+enum {
+  SEC_PROLOGUE,   // wave 0: seed snake, first pebbles, first clip
+  SEC_STORE,      // wave start: border init, band store, barrier
+  SEC_PICK,       // pick3 from the ring neighbours (slot 0's own work)
+  SEC_SNAKE,      // snake, history update, the clip vote
+  SEC_DROPS,      // window vote, pebble-drop trips (at least their vote)
+  SEC_SCAN,       // trigger scan: store, shuffles, warp totals, barriers
+  SEC_REDUCE,     // trim tables, the three block reductions, best/last
+  SEC_CLIP,       // band store, boundary clip and REACH grab (when taken)
+  SEC_PRUNE,      // band prune: two block reductions
+  SEC_TAIL,       // next-wave test, the REACH rest read (when clipped)
+  NSEC
+};
+constexpr int CLK_LANES = 4096;   // lanes of a launch that are counted
+__device__ long long wave_section_clocks[CLK_LANES][NSEC];
+
+#define WCLK_BEGIN                 \
+  long long clk_[NSEC] = {};       \
+  long long clk_last_ = clock64()
+#define WCLK(sec)                  \
+  do {                             \
+    const long long c_ = clock64(); \
+    clk_[sec] += c_ - clk_last_;   \
+    clk_last_ = c_;                \
+  } while (0)
+// the lane's row: blocks of W threads hold one lane, of 2W threads two
+#define WCLK_END                                                       \
+  do {                                                                 \
+    const int row_ = blockIdx.x * (blockDim.x / W) + threadIdx.x / W; \
+    if (t == 0 && row_ < CLK_LANES)                                    \
+      clk_store(wave_section_clocks[row_], clk_);                      \
+  } while (0)
+
+// unrolled, so that the counters stay in registers
+__device__ __forceinline__ void clk_store(long long* row,
+                                          const long long (&c)[NSEC]) {
+#pragma unroll
+  for (int s = 0; s < NSEC; ++s) row[s] += c[s];
+}
+#else
+#define WCLK_BEGIN
+#define WCLK(sec)
+#define WCLK_END
+#endif
+
 // suffix-positivity of a TRIM_LEN-column window (bit TRIM_LEN-1 oldest)
 __device__ __forceinline__ void trim_table(int x, int msc, int dsc, int& t,
                                            int& s) {
@@ -207,6 +263,7 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
   constexpr int soff = REV ? -1 : 0;
   constexpr int fill = REV ? I32MAX : NEG_BIG;
 
+  WCLK_BEGIN;
   const int wl = t & 31, wi = t >> 5;
   const long long abase = in.abase, bbase = in.bbase;
   const int mida = in.mida, k0 = in.k0;
@@ -351,6 +408,8 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
   int live = more && !overflow;
   int dif = 0;
 
+  WCLK(SEC_PROLOGUE);
+
   // ---------------- waves 1, 2, ... ----------------
   while (live) {
     --low;
@@ -368,6 +427,7 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
     sh.sT[t] = T; sh.sHA[t] = HA; sh.sHB[t] = HB; sh.sMA[t] = MA;
     sh.sMB[t] = MB;
     bar.sync();
+    WCLK(SEC_STORE);
     const int tp = (t + 1) & Wm, tm = (t - 1) & Wm;
     if (t == sl) {
       NA = sh.sNA[tp];
@@ -410,6 +470,8 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
       y = floordiv((int)((unsigned)cst - (unsigned)k), 2);
     }
 
+    WCLK(SEC_PICK);
+
     // snake: walk the diagonal to the first mismatch or sentinel
     bool sa = false, sb = false;
     int smiss = 0;
@@ -441,6 +503,7 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
     const int c = (int)(2u * (unsigned)y + (unsigned)k);
     const bool cA = inb && sa, cB = inb && sb;
     const int clip_any = bar.any(cA || cB);
+    WCLK(SEC_SNAKE);
     if (Seq::kWindowed) {
       if (bar.any(smiss)) overflow = 1;
     }
@@ -496,6 +559,8 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
       }
     }
 
+    WCLK(SEC_DROPS);
+
     // best / trim triggers: exclusive suffix max (reverse: prefix min) of c
     // over the band in diagonal order, i.e. in rel order
     const int cm = inb ? c : fill;
@@ -531,6 +596,7 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
       }
     }
     bar.sync();
+    WCLK(SEC_SCAN);
     const int excl = sh.sres[rel];
     bool trigger;
     if (!REV) {
@@ -574,6 +640,8 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
       ltha = wha;
       lthb = whb;
     }
+
+    WCLK(SEC_REDUCE);
 
     // store the band
     if (inb) {
@@ -628,6 +696,8 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
       }
     }
 
+    WCLK(SEC_CLIP);
+
     // band prune on the post-clip band
     {
       const int rel2 = floormod(t - low, W);
@@ -643,6 +713,8 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
         low = low + (lo_rel < hi_rel ? lo_rel : hi_rel);
       }
     }
+
+    WCLK(SEC_PRUNE);
 
     // next wave?  A clipped lane first resolves its REACH rest test
     const bool go = REV ? lasta <= besta + TRIM_MLAG
@@ -663,6 +735,7 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
       overflow = 1;
       live = 0;
     }
+    WCLK(SEC_TAIL);
   }
 
   // trim point: the slot with the largest (dif, rel) key (_trim_extract)
@@ -689,6 +762,7 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
   vals[11] = avail;
   vals[12] = overflow;
   vals[13] = dif;
+  WCLK_END;
 }
 
 // ---------------------------------------------------------------------------
@@ -757,3 +831,24 @@ struct PackedIO {
 };
 
 }  // namespace wavebody
+
+#ifdef WAVE_SECTION_CLOCKS
+// The lanes' section clocks, (CLK_LANES, NSEC) int64, copied into host and
+// then zeroed on the device.
+extern "C" int wave_section_clocks_take(long long* host) {
+  using wavebody::wave_section_clocks;
+  cudaError_t e = cudaMemcpyFromSymbol(host, wave_section_clocks,
+                                       sizeof(wave_section_clocks));
+  void* p = nullptr;
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&p, wave_section_clocks);
+  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(wave_section_clocks));
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  return (int)e;
+}
+
+extern "C" int wave_section_clocks_shape(int* dims) {
+  dims[0] = wavebody::CLK_LANES;
+  dims[1] = wavebody::NSEC;
+  return 0;
+}
+#endif

@@ -67,10 +67,6 @@ NREC_OUT = 16           # the packed output record: OUT_FIELDS, 2 pad words
 
 CSRC_DIR = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _CSRC = CSRC_DIR / "wave.cu"
-# every source a kernel library is built from: a library older than any of
-# them is rebuilt
-KERNEL_SOURCES = tuple(CSRC_DIR / f for f in
-                       ("wave.cu", "wave_persistent.cu", "wave_body.cuh"))
 BUILD_DIR = (pathlib.Path(__file__).resolve().parent.parent.parent
              / "build" / "torch_kernels")
 
@@ -561,22 +557,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 
-def nvcc_build(src: pathlib.Path, name: str,
-               verbose: bool = False) -> pathlib.Path:
-    """Compile one csrc/ source with nvcc into build/torch_kernels/<name>
-    (skipped when the library is newer than every kernel source).
-    verbose=True adds ``-Xptxas -v`` and prints its report."""
+def nvcc_build(src: pathlib.Path, name: str, verbose: bool = False,
+               flags=()) -> pathlib.Path:
+    """Compile one csrc/ source with nvcc (and the extra ``flags``) into
+    build/torch_kernels/<name>, skipped when the library is newer than src
+    and the wave body it includes.  verbose=True adds ``-Xptxas -v`` and
+    prints its report."""
     so = BUILD_DIR / name
     if not verbose and so.exists() and so.stat().st_mtime > max(
-            f.stat().st_mtime for f in KERNEL_SOURCES):
+            f.stat().st_mtime for f in (src, CSRC_DIR / "wave_body.cuh")):
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = os.environ.get("NVCC") or (
         "/usr/local/cuda/bin/nvcc"
         if os.path.exists("/usr/local/cuda/bin/nvcc") else "nvcc")
     tmp = so.with_suffix(".so.tmp%d" % os.getpid())
-    cmd = [nvcc, *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-o", str(tmp), str(src)]
+    cmd = [nvcc, *NVCC_FLAGS, *flags] \
+        + (["-Xptxas", "-v"] if verbose else []) + ["-o", str(tmp), str(src)]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
@@ -591,24 +588,27 @@ def build(verbose: bool = False) -> pathlib.Path:
     return nvcc_build(_CSRC, "libwave.so", verbose)
 
 
+def bind(lib):
+    """Sets the C signatures of a build of csrc/wave.cu; returns lib."""
+    P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    seqargs = [P, LL, P, LL]
+    tail = [P, P, P]                  # out, pool, stream
+    lib.wave_lanes_launch.argtypes = [P] * 6 + seqargs + [I] * 9 + tail
+    lib.wave_lanes_packed_launch.argtypes = [P] + seqargs + [I] * 9 + tail
+    lib.wave_lanes_lanepack_launch.argtypes = [P] * 6 + seqargs + [I] * 8 \
+        + tail
+    for fn in (lib.wave_lanes_launch, lib.wave_lanes_packed_launch,
+               lib.wave_lanes_lanepack_launch):
+        fn.restype = ctypes.c_int
+    lib.wave_error_string.restype = ctypes.c_char_p
+    lib.wave_error_string.argtypes = [I]
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        seqargs = [P, LL, P, LL]
-        tail = [P, P, P]                  # out, pool, stream
-        lib.wave_lanes_launch.argtypes = [P] * 6 + seqargs + [I] * 9 + tail
-        lib.wave_lanes_packed_launch.argtypes = [P] + seqargs + [I] * 9 \
-            + tail
-        lib.wave_lanes_lanepack_launch.argtypes = [P] * 6 + seqargs \
-            + [I] * 8 + tail
-        for fn in (lib.wave_lanes_launch, lib.wave_lanes_packed_launch,
-                   lib.wave_lanes_lanepack_launch):
-            fn.restype = ctypes.c_int
-        lib.wave_error_string.restype = ctypes.c_char_p
-        lib.wave_error_string.argtypes = [I]
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(build())))
     return _lib
 
 

@@ -133,26 +133,31 @@ def build(verbose: bool = False):
                       "libwave_persistent.so", verbose)
 
 
+def bind(lib):
+    """Sets the C signatures of a build of csrc/wave_persistent.cu;
+    returns lib."""
+    P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    seqargs = [P, LL, P, LL]
+    tail = [P, P, P]                  # out, pool, stream
+    lib.wave_persistent_launch.argtypes = \
+        [P] * 8 + seqargs + [I] * 11 + tail
+    lib.wave_persistent_packed_launch.argtypes = \
+        [P] + seqargs + [I] * 11 + tail
+    lib.wave_persistent_lanepack_launch.argtypes = \
+        [P] * 8 + seqargs + [I] * 10 + tail
+    for fn in (lib.wave_persistent_launch,
+               lib.wave_persistent_packed_launch,
+               lib.wave_persistent_lanepack_launch):
+        fn.restype = ctypes.c_int
+    lib.wave_persistent_error_string.restype = ctypes.c_char_p
+    lib.wave_persistent_error_string.argtypes = [I]
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        seqargs = [P, LL, P, LL]
-        tail = [P, P, P]                  # out, pool, stream
-        lib.wave_persistent_launch.argtypes = \
-            [P] * 8 + seqargs + [I] * 11 + tail
-        lib.wave_persistent_packed_launch.argtypes = \
-            [P] + seqargs + [I] * 11 + tail
-        lib.wave_persistent_lanepack_launch.argtypes = \
-            [P] * 8 + seqargs + [I] * 10 + tail
-        for fn in (lib.wave_persistent_launch,
-                   lib.wave_persistent_packed_launch,
-                   lib.wave_persistent_lanepack_launch):
-            fn.restype = ctypes.c_int
-        lib.wave_persistent_error_string.restype = ctypes.c_char_p
-        lib.wave_persistent_error_string.argtypes = [I]
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(build())))
     return _lib
 
 

@@ -1,4 +1,5 @@
-"""The CUDA wave kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels (wave, op-cost probes) against their plain PyTorch
+versions, on the card.
 
 These tests need a CUDA card and skip without one.  They import nothing of
 JAX, so they run on a machine that has only PyTorch:
@@ -6,10 +7,12 @@ JAX, so they run on a machine that has only PyTorch:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
 from damapper_tpu_torch.convert import lanes_from_numpy
+from damapper_tpu_torch.ops import probes
 from damapper_tpu_torch.ops.spec import new_align_spec
 from damapper_tpu_torch.ops.wave_cuda import (IN_FIELDS, LAYOUTS, OUT_FIELDS,
                                               pack_record, wave_lanes,
@@ -95,3 +98,40 @@ def test_persistent_kernels_match_plain_version_on_card(cuda_device, reverse,
             torch.cuda.synchronize()
             assert getattr(wave_lanes_persistent, cnt) == launches + 1
             _assert_equal(k, r, len(insts))
+
+
+PROBE_CASES = [(64, "block"), (64, "half"), (128, "block")]
+
+
+def _seeded(seed, shape, dev):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+                            .astype(np.int32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,barrier", PROBE_CASES)
+def test_probe_kernels_match_plain_version_on_card(cuda_device, W, barrier):
+    """Every pattern of the three probe kernels equals its plain version
+    on seeded int32 inputs; G=9, so the last half-barrier block idles one
+    half.  Each launch is counted."""
+    G, n = 9, 4
+    x = _seeded(1, (G, W), cuda_device)
+    s = _seeded(2, (G, 1), cuda_device)
+    runs = [(probes.floor_probe, v, lambda v=v: probes.floor_probe(
+        x, n, 96, v, barrier), lambda v=v: (probes.floor_probe_ref(
+            x, n, 96, v),)) for v in probes.FLOOR_VARIANTS]
+    runs += [(probes.ops_probe, p, lambda p=p: probes.ops_probe(
+        x, s, n, 28, p, barrier), lambda p=p: probes.ops_probe_ref(
+            x, s, n, 28, p)) for p in probes.OPS_PATTERNS]
+    runs += [(probes.carry_probe, b, lambda b=b: probes.carry_probe(
+        x, n, b, barrier), lambda b=b: probes.carry_probe_ref(x, n, b))
+             for b in probes.CARRY_BODIES]
+    for wrapper, name, kernel, plain in runs:
+        launches = wrapper.launches
+        k = kernel()
+        torch.cuda.synchronize()
+        assert wrapper.launches == launches + 1
+        k = k if isinstance(k, tuple) else (k,)
+        for a, b in zip(k, plain()):
+            assert torch.equal(a, b), name

@@ -1,8 +1,8 @@
 """The port stands alone and never falls back silently.
 
-damapper_tpu_torch imports neither jax nor anything of damapper_tpu, and
-with no CUDA card its entry points raise unless the caller asks for the
-CPU."""
+damapper_tpu_torch imports neither jax nor anything of damapper_tpu nor
+the JAX package's tools/, and with no CUDA card its entry points raise
+unless the caller asks for the CPU."""
 
 import ast
 import pathlib
@@ -13,8 +13,11 @@ import pytest
 import torch
 
 import damapper_tpu_torch
-from damapper_tpu_torch.ops import wave_cuda, wave_engine, wave_persistent
+from damapper_tpu_torch.ops import (probes, wave_cuda, wave_engine,
+                                    wave_persistent)
 from damapper_tpu_torch.pipeline import mapper
+from damapper_tpu_torch.tools import (carry_probe, floor_probe, ops_probe,
+                                      wave_clocks)
 
 PKG = pathlib.Path(damapper_tpu_torch.__file__).resolve().parent
 REPO = PKG.parent
@@ -31,7 +34,8 @@ def _modules():
 
 def _forbidden(name):
     return (name == "jax" or name.startswith(("jax.", "jaxlib"))
-            or name == "damapper_tpu" or name.startswith("damapper_tpu."))
+            or name == "damapper_tpu" or name.startswith("damapper_tpu.")
+            or name == "tools" or name.startswith("tools."))
 
 
 def test_importing_every_module_loads_no_jax():
@@ -40,7 +44,8 @@ def test_importing_every_module_loads_no_jax():
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'damapper_tpu' or "
-            "m.startswith('damapper_tpu.'))\n"
+            "m.startswith('damapper_tpu.') or m == 'tools' or "
+            "m.startswith('tools.'))\n"
             "print(len(sys.modules), bad)\n"
             "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
@@ -134,3 +139,49 @@ def test_persistent_engine_without_card_raises(monkeypatch):
         wave_engine.WaveEngine(None, persistent=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mapper.DamapperConfig(persistent=True, lanepack=True)
+
+
+PROBE_CALLS = {
+    "floor_probe": lambda t: probes.floor_probe(t, 10),
+    "ops_probe": lambda t: probes.ops_probe(t, t, 10),
+    "carry_probe": lambda t: probes.carry_probe(t, 10, "carry60"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PROBE_CALLS))
+def test_probe_cuda_request_without_card_raises(monkeypatch, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_plain(*a, **kw):
+        raise AssertionError("the plain version ran for a CUDA request")
+
+    for ref in ("floor_probe_ref", "ops_probe_ref", "carry_probe_ref"):
+        monkeypatch.setattr(probes, ref, no_plain)
+    wrapper = getattr(probes, name)
+    launches = wrapper.launches
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PROBE_CALLS[name](_CudaTyped())
+    # CUDA and CPU tensors mixed are no CPU request either
+    if name == "ops_probe":
+        with pytest.raises(ValueError, match="all lie on the CPU"):
+            probes.ops_probe(_CudaTyped(), torch.zeros((8, 1),
+                                                       dtype=torch.int32), 1)
+    assert wrapper.launches == launches
+
+
+def test_probe_wrappers_never_fall_back():
+    """No try in the probe module: a CUDA request launches or raises."""
+    tree = ast.parse(pathlib.Path(probes.__file__).read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+@pytest.mark.parametrize("tool", [floor_probe, ops_probe, carry_probe,
+                                  wave_clocks],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+def test_probe_tool_without_card_exits_nonzero(monkeypatch, tmp_path, tool,
+                                               capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "r.jsonl"
+    assert tool.main(["--out", str(out)]) != 0
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not out.exists()
