@@ -15,14 +15,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 same CUDA tensors (tolerance 0: integer outputs; every
                 output field and every pool cell below avail), both
                 directions: the three classic kernels (plain, packed,
-                lanepack) on 128 lanes of 3-9 kb reads at ~15% error and on
-                seeds next to contig ends, plain and packed at W=128 (the
-                card's band) and W=64, lanepack at W=64; the three
-                persistent kernels at W=64 on the same two sets, on 8 lanes
-                of 40-45 kb reads (L=65536: the lane-packed windows no
-                longer fit shared memory) and on the 3-9 kb reads with a
-                window too small for them (misses), on the 3-9 kb reads by
-                both window routes.
+                lanepack) on 128 lanes of 3-9 kb reads at ~15% error, on
+                seeds next to contig ends and on the adversarial set
+                (utils/sim.py: exact repeats, exact runs of 60-600 bases,
+                seeds next to the sequence memory's ends), plain and packed
+                at W=128 (the card's band) and W=64, lanepack at W=64; the
+                three persistent kernels at W=64 on the same three sets, on
+                8 lanes of 40-45 kb reads (L=65536: the lane-packed windows
+                no longer fit shared memory) and on the 3-9 kb reads with a
+                window too small for them (misses), on the 3-9 kb reads,
+                the long reads and the adversarial set by both window
+                routes.  Each launch prints its time and ns per wave of its
+                longest lane.
                 Then the three op-cost probe kernels (csrc/probes.cu, the
                 loops of tools/mosaic_{floor,ops,carry}.py): every pattern
                 against its plain version on seeded int32 inputs at G=9,
@@ -74,6 +78,9 @@ HERE = pathlib.Path(__file__).resolve().parent
 # ~10 ms of device spin queued ahead of the timed calls: the host enqueues
 # all of them meanwhile, so the events time the kernels alone
 LEAD_CYCLES = 20_000_000
+# copies of phase 3's 128 read lanes in one launch: 1,024 lanes, more than
+# the card holds at once at W=128 (csrc/wave.cu's dense kernel)
+TILES = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -200,14 +207,18 @@ def _mismatch(torch, k, r):
 
 def phase_kernel(torch, seed):
     """The three classic kernels against their one plain version, run once
-    per set, direction and band."""
+    per set, direction and band.  The reads set also runs TILES times over
+    (1,024 lanes), more lanes than the card holds at once at W=128, so
+    those launches run the dense W=128 kernel; each copy must equal the
+    plain version's lanes."""
     phase("3 kernel vs plain version: classic")
     from damapper_tpu_torch.convert import lanes_from_numpy
     from damapper_tpu_torch.ops.spec import new_align_spec
     from damapper_tpu_torch.ops.wave_cuda import (IN_FIELDS, LAYOUTS,
-                                                  pack_record, wave_lanes,
-                                                  wave_lanes_ref)
-    from damapper_tpu_torch.utils.sim import make_lane_cases
+                                                  OUT_FIELDS, pack_record,
+                                                  wave_lanes, wave_lanes_ref)
+    from damapper_tpu_torch.utils.sim import (make_adversarial_lane_cases,
+                                              make_lane_cases)
 
     spec = new_align_spec(0.85, 100, [.25, .25, .25, .25], True)
     consts = dict(ts=spec.trace_space, pave=spec.ave_path, msc=spec.mscore,
@@ -221,6 +232,8 @@ def phase_kernel(torch, seed):
         # the sequence ends in both directions
         "ends": make_lane_cases(seed + 1, 32, glen=9400, rlen=9000,
                                 rmin=8500, mix=True, err=0.15),
+        # exact repeats, long exact runs, seeds next to the memory's ends
+        "adversarial": make_adversarial_lane_cases(seed),
     }
     # the band each layout's row reports: the engine's default for it
     band = {"plain": 128, "packed": 128, "lanepack": 64}
@@ -229,6 +242,11 @@ def phase_kernel(torch, seed):
     for nm, (seqmem, insts) in sets.items():
         lanes = lanes_from_numpy(insts, seqmem, dev)
         rec = pack_record([lanes[f] for f in IN_FIELDS])
+        tiled = None
+        if nm == "reads":
+            tiled = {f: v.repeat(TILES) if f in IN_FIELDS else v
+                     for f, v in lanes.items()}
+            tiled_rec = pack_record([tiled[f] for f in IN_FIELDS])
         for reverse in (False, True):
             d = "rev" if reverse else "fwd"
             for W in (128, 64):
@@ -254,11 +272,27 @@ def phase_kernel(torch, seed):
                     bad, err = _mismatch(torch, k, r)
                     q = per[lay]
                     q["max_abs_err"] = max(q["max_abs_err"], err)
-                    line.append(f"  {lay}: {ms:.4f} ms, mismatching lanes "
-                                f"per field {bad}")
+                    line.append(f"  {lay}: {ms:.4f} ms, "
+                                f"{1e6 * ms / max(wmax, 1):.1f} ns per wave "
+                                f"of the longest lane, mismatching lanes per "
+                                f"field {bad}")
                     check(not any(bad.values()),
                           f"classic {lay} kernel and plain version differ "
                           f"on {nm} {d} W={W}: {bad}")
+                    if tiled is not None:
+                        kwt = dict(kw, record=tiled_rec) if "record" in kw \
+                            else kw
+                        kt = wave_lanes(**tiled, **args, **kwt)
+                        rt = {f: r[f].repeat(TILES, *[1] * (r[f].dim() - 1))
+                              for f in (*OUT_FIELDS, "pool")}
+                        bad, err = _mismatch(torch, kt, rt)
+                        q["max_abs_err"] = max(q["max_abs_err"], err)
+                        line.append(f"  {lay}, these lanes {TILES} times over "
+                                    f"({TILES * len(insts)} lanes): "
+                                    f"mismatching lanes per field {bad}")
+                        check(not any(bad.values()),
+                              f"classic {lay} kernel and plain version "
+                              f"differ on {nm} x{TILES} {d} W={W}: {bad}")
                     if nm == "reads":
                         q["ms"].setdefault(W, []).append(ms)
                         if W == band[lay]:
@@ -293,7 +327,8 @@ def phase_persistent_kernels(torch, seed):
     from damapper_tpu_torch.ops.wave_persistent import (
         KERNEL_NAMES, LAYOUTS, wave_lanes_persistent,
         wave_lanes_persistent_ref, window_fits_smem, window_length)
-    from damapper_tpu_torch.utils.sim import (make_lane_cases,
+    from damapper_tpu_torch.utils.sim import (make_adversarial_lane_cases,
+                                              make_lane_cases,
                                               make_long_lane_cases)
 
     spec = new_align_spec(0.85, 100, [.25, .25, .25, .25], True)
@@ -317,6 +352,7 @@ def phase_persistent_kernels(torch, seed):
         "long": (long_[0], long_[1], long_[2], 2048),
         # the same reads against windows too small for them
         "miss": (reads[0], reads[1], 2048),
+        "adversarial": with_L(make_adversarial_lane_cases(seed)),
     }
     per = {lay: {"ms": [], "ms_global": [], "bound_ms": [], "bound_by": [],
                  "max_abs_err": 0} for lay in LAYOUTS}
@@ -338,15 +374,16 @@ def phase_persistent_kernels(torch, seed):
             # the packed kernel reads the record the engine uploads
             rec = pack_record([lanes[f] for f in IN_FIELDS + ("awst",
                                                               "bwst")])
+            wmax = max(int(r["waves"].max()), 1)
             line = [f"{nm} {d}: {len(insts)} lanes, L={L}, plain "
                     f"{pms:.1f} ms, overflow {int(r['overflow'].sum())}, "
-                    f"waves max {int(r['waves'].max())}"]
+                    f"waves max {wmax}"]
             for lay in LAYOUTS:
                 # both routes on the reads and long sets (where the windows
                 # fit shared memory), the default route elsewhere
                 fits = window_fits_smem(L, lay)
                 routes = ((True, False) if fits else (False,)) \
-                    if nm in ("reads", "long") else (fits,)
+                    if nm in ("reads", "long", "adversarial") else (fits,)
                 for smem in routes:
                     kw = dict(layout=lay, window_in_smem=smem)
                     if lay == "packed":
@@ -360,7 +397,9 @@ def phase_persistent_kernels(torch, seed):
                                                   err)
                     route = "smem" if smem else "global"
                     line.append(f"  {lay}/{route}: {ms:.4f} ms, "
-                                f"mismatching lanes {sum(bad.values())}")
+                                f"{1e6 * ms / wmax:.1f} ns per wave of the "
+                                f"longest lane, mismatching lanes "
+                                f"{sum(bad.values())}")
                     check(not any(bad.values()),
                           f"persistent {lay} kernel ({route}) and plain "
                           f"version differ on {nm} {d}: {bad}")
@@ -417,19 +456,6 @@ SASS_NEEDS = {
 }
 
 
-def _loop_ops(text):
-    """The instructions of a kernel's SASS that lie in a loop: between a
-    backward branch and its target."""
-    import re
-    rows = [(int(m.group(1), 16), m.group(2)) for m in
-            (re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
-             for ln in text.splitlines()) if m]
-    loops = [(int(m.group(1), 16), addr) for addr, op in rows
-             for m in [re.search(r"\bBRA\s+0x([0-9a-f]+)", op)]
-             if m and int(m.group(1), 16) <= addr]
-    return [op for addr, op in rows if any(a <= addr <= b for a, b in loops)]
-
-
 def _probe_names(probes):
     return {"floor": probes.FLOOR_VARIANTS, "ops": probes.OPS_PATTERNS,
             "carry": probes.CARRY_BODIES}
@@ -453,7 +479,7 @@ def _probe_sass(probes):
     pattern's instructions (nvcc must not have deleted or merged the work
     being timed); prints the counts."""
     import re
-    from damapper_tpu_torch.tools.wave_ab import sass_counts
+    from damapper_tpu_torch.tools.wave_ab import loop_ops, sass_counts
     sass = sass_counts(probes.build())
     names = _probe_names(probes)
     seen = 0
@@ -465,7 +491,7 @@ def _probe_sass(probes):
         lits = re.findall(r"L[ib](\d+)E", sym)
         W, pat = int(lits[0]), names[kind][int(lits[-1])]
         bar = "half" if "HalfBar" in sym else "block"
-        ops = _loop_ops(text)
+        ops = loop_ops(text)
         counts = {}
         for op, least in SASS_NEEDS[(kind, pat)]:
             counts[op] = sum(bool(re.search(op, ln)) for ln in ops)

@@ -16,12 +16,14 @@
 // Layout: one row g per W threads, thread t owns column t, as the wave
 // kernels own one lane per W threads.  Every cross-thread step goes through
 // wave_body.cuh's barrier policies: BlockBar (one block of W threads per
-// row, __syncthreads / __syncthreads_or) or HalfBar (W=64 only: rows 2b and
-// 2b+1 in the two halves of a 128-thread block, each half on its own named
-// barrier, as the lane-packed wave kernels run).  Row reductions are
-// wave_body.cuh's block_reduce; a roll is a store to shared memory, a
-// barrier, a neighbour read and a barrier.  So each probe times the steps
-// the wave body executes, under the policy it executes them with.
+// row, __syncthreads) or HalfBar (W=64 only: rows 2b and 2b+1 in the two
+// halves of a 128-thread block, each half on its own named barrier, as the
+// lane-packed wave kernels run).  Votes (vote_any) and row reductions
+// (block_reduce: a warp butterfly, then the warps' values through shared
+// memory between two barriers) are the steps of the wave body before its
+// barrier rounds (Rounds, redux.sync); a roll is a store to shared memory,
+// a barrier, a neighbour read and a barrier.  So each probe times a step
+// of that body, under the policy it executed it with.
 //
 // int32 arithmetic wraps in two's complement, as in JAX: every add that can
 // overflow goes through unsigned (wadd), since signed overflow is undefined
@@ -68,6 +70,39 @@ __device__ __forceinline__ void keep(int& v) { asm volatile("" : "+r"(v)); }
 struct OpWrapSum {
   __device__ int operator()(int a, int b) const { return wadd(a, b); }
 };
+
+// the policy's vote over the row's threads
+__device__ __forceinline__ int vote_any(const BlockBar&, int p) {
+  return __syncthreads_or(p);
+}
+__device__ __forceinline__ int vote_any(const HalfBar& bar, int p) {
+  int r;
+  asm volatile(
+      "{\n\t.reg .pred ip, op;\n\t"
+      "setp.ne.s32 ip, %1, 0;\n\t"
+      "bar.red.or.pred op, %2, 64, ip;\n\t"
+      "selp.s32 %0, 1, 0, op;\n\t}"
+      : "=r"(r)
+      : "r"(p), "r"(bar.id)
+      : "memory");
+  return r;
+}
+
+// the op over the row's W values: a warp butterfly, then the NW warps'
+// values through red between two barriers (the first waits for the
+// earlier readers of red)
+template <int NW, class Bar, class Op>
+__device__ __forceinline__ int block_reduce(int v, int* red, const Bar& bar,
+                                            int t, Op op) {
+  for (int o = 16; o; o >>= 1) v = op(v, __shfl_xor_sync(FULL, v, o));
+  bar.sync();
+  if ((t & 31) == 0) red[t >> 5] = v;
+  bar.sync();
+  int r = red[0];
+#pragma unroll
+  for (int i = 1; i < NW; ++i) r = op(r, red[i]);
+  return r;
+}
 
 // row geometry of a barrier policy
 template <int W, class Bar>
@@ -147,8 +182,8 @@ floor_kernel(const int* __restrict__ xin, int* __restrict__ out, int G,
 // outputs (scal_arith changes only s; x passes through).  cond: s is an
 // input and never changes, so each block reduces (s > 0).any() over all G
 // rows once before its loop; every application then votes on it with the
-// policy's any() (__syncthreads_or / bar.red.or), the wave body's bar.any,
-// and takes the branch.  Bound: latency of the pattern's chain (see top).
+// policy's vote_any() (__syncthreads_or / bar.red.or) and takes the
+// branch.  Bound: latency of the pattern's chain (see top).
 // ---------------------------------------------------------------------------
 
 enum { ELEMWISE, ROLL, REDUCE_ROW, REDUCE_SCAL, ONEHOT_GRAB, SCAL_ARITH, COND,
@@ -208,7 +243,7 @@ ops_kernel(const int* __restrict__ xin, const int* __restrict__ s_in,
         } else if (PAT == SCAL_ARITH) {
           s = max(wadd(s, 1), s ^ 3);
         } else {   // COND
-          x = bar.any(pred) ? wadd(x, 1) : wadd(x, -1);
+          x = vote_any(bar, pred) ? wadd(x, 1) : wadd(x, -1);
         }
       }
     }

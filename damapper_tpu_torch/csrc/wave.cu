@@ -21,10 +21,12 @@
 // NA, NB, HA, HB, MA, MB, the 61-bit match history T, the lazy trim
 // candidate) in registers.  A lane runs from its prologue to its end in one
 // launch.  Ring-neighbour reads of the wave start (border inheritance and
-// pick3) go through shared memory; lane-wide maxima, minima and sums are
-// warp shuffles plus a shared word per warp; the two trim-trigger scans run
-// over the band in diagonal order with warp shuffles.  The snake reads the
-// sequences straight from global memory (the TPU kernel's bitmask match
+// pick3) go through shared memory; every lane-wide result (votes, drop
+// ranks, the trim-trigger scan's warp totals, maxima, minima, sums) is a
+// warp's shuffles plus one record per warp in a barrier round, and a wave
+// without clip or drop trip meets at three barriers (the note in
+// wave_body.cuh).  The snake reads the sequences 8 bases per aligned word
+// straight from global memory (the TPU kernel's bitmask match
 // planes, window reloads and reload stalls exist only because Mosaic had
 // neither gathers nor DMA), pebbles go straight to the lane's pool rows in
 // global memory (no drop buffer), and the REACH rest test reads its two
@@ -45,11 +47,12 @@
 // pebble, which at the H100's 3.35 TB/s is microseconds per round; its
 // integer work is a few hundred operations per slot per wave.  The waves of
 // a lane are a chain of dependent steps, each ending in block barriers, and
-// every snake step is a dependent byte load, so the kernel is bound by
-// latency and instruction issue.  The design keeps everything but the
-// sequence bytes and the pool on chip and runs many lanes per SM (one
-// 64- or 128-thread block per lane) so that the SM can switch between
-// lanes while one waits on a load or a barrier.
+// the snake waits on its loads, so the kernel is bound by latency and
+// instruction issue.  The design keeps everything but the sequence bytes
+// and the pool on chip, runs many lanes per SM (one 64- or 128-thread block
+// per lane) so that the SM can switch between lanes while one waits on a
+// load or a barrier, and shortens each wave's chain: 8 bases per pair of
+// loads in the snake, three barrier rounds a wave where there were sixteen.
 //
 // The lane itself is wave_body.cuh's wave_lane(), here with the classic
 // sequence access (global memory, sentinel 4 outside it); the persistent
@@ -72,10 +75,10 @@ using namespace wavebody;
 
 // plain and packed: one block of W threads per lane
 template <int W, bool REV, class IO>
-__global__ void __launch_bounds__(W)
-wave_lanes_kernel(IO io, const uint8_t* __restrict__ A, long long LA,
-                  const uint8_t* __restrict__ B, long long LB, Consts cs,
-                  int* __restrict__ pool) {
+__device__ __forceinline__ void classic_lane(IO io, const uint8_t* A,
+                                             long long LA, const uint8_t* B,
+                                             long long LB, Consts cs,
+                                             int* pool) {
   __shared__ LaneShared<W> sh;
   const int lane = blockIdx.x;
   const int t = threadIdx.x;
@@ -85,6 +88,29 @@ wave_lanes_kernel(IO io, const uint8_t* __restrict__ A, long long LA,
                     reinterpret_cast<int4*>(pool) + (long long)lane * cs.P,
                     vals);
   if (t == 0) io.store(lane, vals);
+}
+
+template <int W, bool REV, class IO>
+__global__ void __launch_bounds__(W)
+wave_lanes_kernel(IO io, const uint8_t* __restrict__ A, long long LA,
+                  const uint8_t* __restrict__ B, long long LB, Consts cs,
+                  int* __restrict__ pool) {
+  classic_lane<W, REV>(io, A, LA, B, LB, cs, pool);
+}
+
+// The same lane at W=128 in at most 72 registers, so that an SM holds 7
+// lanes where wave_lanes_kernel's 96-111 registers leave room for 4-5.  A
+// launch of more lanes than the card holds at once is bound by the
+// lane-waves an SM retires rather than by one wave's latency, and there
+// the denser kernel wins despite its spilled bytes: on the H100 (700 W),
+// 1-9% at 4,096-16,384 lanes; with every lane resident (128 lanes) it
+// lost 7-12%.  launch_w picks it only for such launches.
+template <bool REV, class IO>
+__global__ void __launch_bounds__(128, 7)
+wave_lanes_dense_kernel(IO io, const uint8_t* __restrict__ A, long long LA,
+                        const uint8_t* __restrict__ B, long long LB,
+                        Consts cs, int* __restrict__ pool) {
+  classic_lane<128, REV>(io, A, LA, B, LB, cs, pool);
 }
 
 // lanepack: one block of 128 threads, two W=64 lanes, one per half
@@ -106,29 +132,43 @@ wave_lanes_lp_kernel(SplitIO io, const uint8_t* __restrict__ A, long long LA,
   if (t == 0) io.store(lane, vals);
 }
 
+// At W=128, a launch of more lanes than wave_lanes_kernel holds on the
+// card at once runs wave_lanes_dense_kernel.
+template <int W, bool REV, class IO>
+cudaError_t launch_w(IO io, const uint8_t* A, long long LA, const uint8_t* B,
+                     long long LB, int n, Consts cs, int* pool,
+                     cudaStream_t st) {
+  if constexpr (W == 128) {
+    int dev = 0, sms = 0, fit = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &fit, wave_lanes_kernel<W, REV, IO>, W, 0);
+    if (e != cudaSuccess) return e;
+    if (n > fit * sms) {
+      wave_lanes_dense_kernel<REV, IO><<<n, W, 0, st>>>(io, A, LA, B, LB, cs,
+                                                        pool);
+      return cudaGetLastError();
+    }
+  }
+  wave_lanes_kernel<W, REV, IO><<<n, W, 0, st>>>(io, A, LA, B, LB, cs, pool);
+  return cudaGetLastError();
+}
+
 template <class IO>
 cudaError_t launch_lanes(IO io, const uint8_t* A, long long LA,
                          const uint8_t* B, long long LB, int n, int W,
                          int reverse, Consts cs, int* pool,
                          cudaStream_t st) {
-#define WL_LAUNCH(W_, R_)                                                  \
-  wave_lanes_kernel<W_, R_, IO><<<n, W_, 0, st>>>(io, A, LA, B, LB, cs,   \
-                                                  pool)
-  if (W == 64) {
-    if (reverse)
-      WL_LAUNCH(64, true);
-    else
-      WL_LAUNCH(64, false);
-  } else if (W == 128) {
-    if (reverse)
-      WL_LAUNCH(128, true);
-    else
-      WL_LAUNCH(128, false);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-#undef WL_LAUNCH
-  return cudaGetLastError();
+  if (W == 64)
+    return reverse ? launch_w<64, true>(io, A, LA, B, LB, n, cs, pool, st)
+                   : launch_w<64, false>(io, A, LA, B, LB, n, cs, pool, st);
+  if (W == 128)
+    return reverse ? launch_w<128, true>(io, A, LA, B, LB, n, cs, pool, st)
+                   : launch_w<128, false>(io, A, LA, B, LB, n, cs, pool, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

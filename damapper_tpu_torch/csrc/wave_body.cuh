@@ -7,23 +7,49 @@
 // the note at the top of wave.cu).  It is templated on two policies:
 //
 //   Seq  — sequence access: achar(i, miss) / bchar(i, miss) give the byte at
-//          global index i of the A / B sequence memory.  ClassicSeq reads
-//          global memory and gives the sentinel 4 outside [0, len).
-//          WindowSeq<SMEM> reads the lane's window [wst, wst + L), staged in
-//          shared memory (SMEM) or read in place from global memory; bytes
-//          of the window past the end of the sequence memory read 4, and an
-//          index outside the window reads 4 and sets `miss`.  A windowed
-//          lane that needs such a byte is flagged as overflowed and stops at
-//          the end of that wave; a byte is needed when the snake stops on it
-//          (the B byte, and the A byte when the B byte is a base) or when the
-//          REACH rest test reads it.
-//   Bar  — the barrier and vote of the threads that run the lane: BlockBar
+//          global index i of the A / B sequence memory; awalk<REV>(i) /
+//          bwalk<REV>(i) a WordWalk from i that gives 8 consecutive bases a
+//          step in the walk's direction; amiss(i) / bmiss(i) whether i lies
+//          outside the lane's window.  ClassicSeq reads global memory and
+//          gives the sentinel 4 outside [0, len).  WindowSeq<SMEM> reads the
+//          lane's window [wst, wst + L), staged in shared memory (SMEM) or
+//          read in place from global memory; bytes of the window past the
+//          end of the sequence memory read 4, and an index outside the
+//          window reads 4 and is a miss.  A windowed lane that needs such a
+//          byte is flagged as overflowed and stops at the end of that wave;
+//          a byte is needed when the snake stops on it (the B byte, and the
+//          A byte when the B byte is a base) or when the REACH rest test
+//          reads it.
+//   Bar  — the barrier of the threads that run the lane: BlockBar
 //          (__syncthreads, the whole block) or HalfBar (a named barrier of
 //          the 64 threads of one half of a 128-thread block, so that two
 //          lanes share a block and each half waits only for itself).
 //
 // With ClassicSeq the window tests compile away.  The lane-input layouts
 // (SplitIO, PackedIO) at the end serve both files' kernels.
+//
+// A wave is bound by its latency: the band's longest snake, then the
+// barriers its slots meet at.  So the snake compares 8 bases per pair of
+// loads (WordWalk: one aligned 8-byte word of A and one of B a step;
+// stop_bytes() flags the bytes where a != b or b == 4, and the walk stops
+// at the first in walk order; only the stop's index is tested for a window
+// miss), and a wave on the common path (no clip, no drop trip) meets at
+// three barriers:
+//   round 0 (:591): the band into shared memory for pick3;
+//   round A (:746): after the snake, the clip and window votes, the
+//     first drop test with the ranks of its trip, the trigger scan's warp
+//     totals (the scan runs in slot order, segmented at the ring's wrap)
+//     and each warp's best (c, rel), which give bandc and kstar;
+//   round B (:884): lastc and the band prune's hi_rel and lo_rel
+//     (one packed key under a per-halfword max).  Warp-wide maxima,
+//     minima and sums are one redux.sync each.
+// A drop trip adds one round (:820: the next trip's test and ranks), a
+// clipped wave its ten clip reductions (one round each, Rounds::reduce)
+// and a re-prune of the post-clip band (:942).  The rounds alternate
+// two record buffers, so no barrier only guards a buffer's reuse.  The
+// staged windows of wave_persistent.cu need no padding: a walk loads a
+// word whole only inside the window's bytes and reads the rest byte by
+// byte.
 
 #pragma once
 
@@ -60,6 +86,84 @@ __device__ __forceinline__ int floormod(int a, int b) {
 // sequence-access policies
 // ---------------------------------------------------------------------------
 
+// A walk over one sequence, 8 bases a step: bases() gives the step's bytes
+// [p, p + 8) (REV: [p - 7, p]) in memory order, byte j at bits 8j, where p
+// is the start index advanced by 8 a step (REV: moved back by 8); next()
+// moves on.  Indices are relative to `base`; those outside [0, len) read 4.
+// It holds the two 8-byte-aligned words that cover the step and joins them
+// with a funnel shift, so each step loads one new word, and only when the
+// walk goes on: a word loaded ahead and left pending at the walk's end
+// stalls the next instruction that reuses its register (loading ahead
+// made launches 2-8% slower on the H100).  A word is loaded
+// whole only when it lies inside [0, len): a word that crosses an end (or
+// lies outside) is read byte by byte, so no read leaves the allocation and
+// the sequence memory needs no slack.  GLOBAL: base is in global memory
+// (__ldg), else in shared memory.
+template <bool REV, bool GLOBAL>
+struct WordWalk {
+  const uint8_t* base;
+  long long len;
+  long long q;        // base + q is 8-byte aligned; w0 holds [q, q + 8)
+  int s8;             // bit offset of the step's lowest byte in w0
+  uint64_t w0, w1;    // the words at q and q + 8
+
+  __device__ __forceinline__ uint64_t load(long long i) const {
+    if (i >= 0 && i <= len - 8) {
+      const uint64_t* w = reinterpret_cast<const uint64_t*>(base + i);
+      return GLOBAL ? (uint64_t)__ldg(
+                          reinterpret_cast<const unsigned long long*>(w))
+                    : *w;
+    }
+    uint64_t w = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const long long r = i + j;
+      const uint64_t b =
+          (unsigned long long)r < (unsigned long long)len
+              ? (uint64_t)(GLOBAL ? __ldg(base + r) : base[r])
+              : 4;
+      w |= b << (8 * j);
+    }
+    return w;
+  }
+  __device__ __forceinline__ void start(long long p) {
+    const long long lo = REV ? p - 7 : p;
+    const int r = (int)((reinterpret_cast<uintptr_t>(base) +
+                         (uintptr_t)lo) & 7);
+    q = lo - r;
+    s8 = 8 * r;
+    w0 = load(q);
+    w1 = load(q + 8);
+  }
+  // (w1 << 1) << (63 - s8) is w1 << (64 - s8), and 0 when s8 == 0
+  __device__ __forceinline__ uint64_t bases() const {
+    return (w0 >> s8) | ((w1 << 1) << (63 - s8));
+  }
+  __device__ __forceinline__ void next() {
+    if (REV) {
+      q -= 8;
+      w1 = w0;
+      w0 = load(q);
+    } else {
+      q += 8;
+      w0 = w1;
+      w1 = load(q + 8);
+    }
+  }
+};
+
+// 0x80 in each byte where a step stops: a != b, or b is the sentinel 4.
+// Both tests are exact per byte (no carry crosses a byte), so the highest
+// flagged byte is as trustworthy as the lowest.
+__device__ __forceinline__ uint64_t stop_bytes(uint64_t a, uint64_t b) {
+  constexpr uint64_t L7 = 0x7F7F7F7F7F7F7F7Full;
+  constexpr uint64_t H = 0x8080808080808080ull;
+  const uint64_t d = a ^ b, e = b ^ 0x0404040404040404ull;
+  const uint64_t dne = ((d & L7) + L7) | d;   // high bit: byte of d != 0
+  const uint64_t ene = ((e & L7) + L7) | e;   // high bit: byte of e != 0
+  return (dne | ~ene) & H;
+}
+
 struct ClassicSeq {
   static constexpr bool kWindowed = false;
   const uint8_t* A;
@@ -76,6 +180,20 @@ struct ClassicSeq {
     return (unsigned long long)i < (unsigned long long)LB ? (int)__ldg(B + i)
                                                           : 4;
   }
+  template <bool REV>
+  __device__ __forceinline__ WordWalk<REV, true> awalk(long long i) const {
+    WordWalk<REV, true> w{A, LA};
+    w.start(i);
+    return w;
+  }
+  template <bool REV>
+  __device__ __forceinline__ WordWalk<REV, true> bwalk(long long i) const {
+    WordWalk<REV, true> w{B, LB};
+    w.start(i);
+    return w;
+  }
+  __device__ __forceinline__ bool amiss(long long) const { return false; }
+  __device__ __forceinline__ bool bmiss(long long) const { return false; }
 };
 
 template <bool SMEM>
@@ -105,6 +223,29 @@ struct WindowSeq {
   __device__ __forceinline__ int bchar(long long i, int& miss) const {
     return get(wb, i - bwst, validb, miss);
   }
+  // the walks read the window's bytes that lie in the sequence memory; the
+  // rest, inside or outside the window, read 4
+  template <bool REV>
+  __device__ __forceinline__ WordWalk<REV, !SMEM> walk(
+      const uint8_t* w, long long r, long long valid) const {
+    WordWalk<REV, !SMEM> ww{w, valid < L ? (valid > 0 ? valid : 0) : L};
+    ww.start(r);
+    return ww;
+  }
+  template <bool REV>
+  __device__ __forceinline__ WordWalk<REV, !SMEM> awalk(long long i) const {
+    return walk<REV>(wa, i - awst, valida);
+  }
+  template <bool REV>
+  __device__ __forceinline__ WordWalk<REV, !SMEM> bwalk(long long i) const {
+    return walk<REV>(wb, i - bwst, validb);
+  }
+  __device__ __forceinline__ bool amiss(long long i) const {
+    return (unsigned long long)(i - awst) >= (unsigned long long)L;
+  }
+  __device__ __forceinline__ bool bmiss(long long i) const {
+    return (unsigned long long)(i - bwst) >= (unsigned long long)L;
+  }
 };
 
 // ---------------------------------------------------------------------------
@@ -113,9 +254,6 @@ struct WindowSeq {
 
 struct BlockBar {
   __device__ __forceinline__ void sync() const { __syncthreads(); }
-  __device__ __forceinline__ int any(int p) const {
-    return __syncthreads_or(p);
-  }
 };
 
 struct HalfBar {
@@ -123,18 +261,6 @@ struct HalfBar {
 
   __device__ __forceinline__ void sync() const {
     asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
-  }
-  __device__ __forceinline__ int any(int p) const {
-    int r;
-    asm volatile(
-        "{\n\t.reg .pred ip, op;\n\t"
-        "setp.ne.s32 ip, %1, 0;\n\t"
-        "bar.red.or.pred op, %2, 64, ip;\n\t"
-        "selp.s32 %0, 1, 0, op;\n\t}"
-        : "=r"(r)
-        : "r"(p), "r"(id)
-        : "memory");
-    return r;
   }
 };
 
@@ -147,9 +273,7 @@ struct LaneShared {
   static constexpr int NW = W / 32;
   int sV[W], sNA[W], sNB[W], sM[W], sHA[W], sHB[W], sMA[W], sMB[W];
   uint64_t sT[W];
-  int sbuf[W], sres[W];
-  int red[NW], wtot[NW];
-  unsigned balA[NW], balB[NW];
+  int4 rec[2][2 * NW];   // Rounds: two buffers of one 8-int record per warp
   int pro[12];
 };
 
@@ -162,22 +286,57 @@ struct Consts {
   int P, TS, pave, msc, dsc, max_waves;
 };
 
-struct OpMax { __device__ int operator()(int a, int b) const { return a > b ? a : b; } };
-struct OpMin { __device__ int operator()(int a, int b) const { return a < b ? a : b; } };
-struct OpSum { __device__ int operator()(int a, int b) const { return a + b; } };
+// warp(v): the op over the warp's 32 values in one redux.sync
+struct OpMax {
+  __device__ int operator()(int a, int b) const { return a > b ? a : b; }
+  __device__ int warp(int v) const { return __reduce_max_sync(FULL, v); }
+};
+struct OpMin {
+  __device__ int operator()(int a, int b) const { return a < b ? a : b; }
+  __device__ int warp(int v) const { return __reduce_min_sync(FULL, v); }
+};
+struct OpSum {
+  __device__ int operator()(int a, int b) const { return a + b; }
+  __device__ int warp(int v) const { return __reduce_add_sync(FULL, v); }
+};
 
-template <int NW, class Bar, class Op>
-__device__ __forceinline__ int block_reduce(int v, int* red, const Bar& bar,
-                                            int t, Op op) {
-  for (int o = 16; o; o >>= 1) v = op(v, __shfl_xor_sync(FULL, v, o));
-  bar.sync();                           // earlier readers of red are done
-  if ((t & 31) == 0) red[t >> 5] = v;
-  bar.sync();
-  int r = red[0];
+// The lane's barrier rounds: in meet() lane 0 of each warp posts the warp's
+// record (two int4), the threads meet at one barrier, and every thread reads
+// all NW records.  Rounds alternate between two buffers: round i + 2 writes
+// round i's buffer only after its writer has passed round i + 1's barrier,
+// which every reader of round i reaches after reading it, so no barrier
+// exists only to guard a buffer's reuse.
+template <int NW, class Bar>
+struct Rounds {
+  int4 (*rec)[2 * NW];
+  Bar bar;
+  int wl, wi;
+  int par;
+
+  __device__ __forceinline__ const int4* meet(int4 r0, int4 r1) {
+    int4* b = rec[par];
+    par ^= 1;
+    if (wl == 0) {
+      b[2 * wi] = r0;
+      b[2 * wi + 1] = r1;
+    }
+    bar.sync();
+    return b;
+  }
+  // a lane-wide op-reduction of v in one round
+  template <class Op>
+  __device__ __forceinline__ int reduce(int v, Op op) {
+    v = op.warp(v);
+    int4* b = rec[par];
+    par ^= 1;
+    if (wl == 0) b[2 * wi].x = v;
+    bar.sync();
+    int r = b[0].x;
 #pragma unroll
-  for (int i = 1; i < NW; ++i) r = op(r, red[i]);
-  return r;
-}
+    for (int i = 1; i < NW; ++i) r = op(r, b[2 * i].x);
+    return r;
+  }
+};
 
 // ---------------------------------------------------------------------------
 // section clocks, built only with -DWAVE_SECTION_CLOCKS (tools/wave_clocks.py)
@@ -187,20 +346,23 @@ __device__ __forceinline__ int block_reduce(int v, int* red, const Bar& bar,
 // slot 0 adds its counters to the lane's row of wave_section_clocks.  Slot 0
 // meets the lane's other slots at every barrier, so a section that ends in a
 // barrier counts the lane's time: slot 0's own work and its wait for the
-// slowest slot.  Without the macro the counters and reads are not compiled.
+// slowest slot.  The clocked build meets once more after the snake, so that
+// the snake section holds the band's longest snake and round A its own
+// work.  Without the macro the counters, reads and that barrier are not
+// compiled.
 
 #ifdef WAVE_SECTION_CLOCKS
 enum {
   SEC_PROLOGUE,   // wave 0: seed snake, first pebbles, first clip
-  SEC_STORE,      // wave start: border init, band store, barrier
+  SEC_STORE,      // wave start: border init, band store, round 0
   SEC_PICK,       // pick3 from the ring neighbours (slot 0's own work)
-  SEC_SNAKE,      // snake, history update, the clip vote
-  SEC_DROPS,      // window vote, pebble-drop trips (at least their vote)
-  SEC_SCAN,       // trigger scan: store, shuffles, warp totals, barriers
-  SEC_REDUCE,     // trim tables, the three block reductions, best/last
-  SEC_CLIP,       // band store, boundary clip and REACH grab (when taken)
-  SEC_PRUNE,      // band prune: two block reductions
-  SEC_TAIL,       // next-wave test, the REACH rest read (when clipped)
+  SEC_SNAKE,      // word-wide snake, history update, the band's longest
+  SEC_ROUND_A,    // warp scan, reductions, ballots and votes; round A
+  SEC_DROPS,      // pebble-drop trips (when taken), one round each
+  SEC_TRIGGER,    // triggers, best, trim tables, lazy trim, band store
+  SEC_ROUND_B,    // lastc and the packed prune key; round B
+  SEC_CLIP,       // boundary clip, REACH grab, re-prune (when clipped)
+  SEC_TAIL,       // prune, next-wave test, the REACH rest read (clipped)
   NSEC
 };
 constexpr int CLK_LANES = 4096;   // lanes of a launch that are counted
@@ -270,7 +432,7 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
   const int aoffp = in.aoffp, boffp = in.boffp;
   const int P = cs.P, TS = cs.TS;
   int* const pro = sh.pro;
-  int* const red = sh.red;
+  Rounds<NW, Bar> rd{sh.rec, bar, wl, wi, 0};
 
   // ---------------- wave 0: prologue (make_prologue) ----------------
   const int y0 = floordiv(mida - k0, 2);
@@ -472,20 +634,39 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
 
     WCLK(SEC_PICK);
 
-    // snake: walk the diagonal to the first mismatch or sentinel
+    // snake: walk the diagonal to the first mismatch or sentinel, 8 bases a
+    // step (one aligned word of A and one of B); the step's stop is its
+    // first flagged byte in walk order, the lowest forward, the highest in
+    // reverse
     bool sa = false, sb = false;
     int smiss = 0;
     if (inb) {
       const long long pb = bbase + y + soff;
       const long long pa = abase + (long long)y + k + soff;
+      auto wa = seq.template awalk<REV>(pa);
+      auto wb = seq.template bwalk<REV>(pb);
       int run = 0;
       while (true) {
-        int mb = 0, ma = 0;
-        const int b = seq.bchar(pb + (long long)sgn * run, mb);
-        const int a = seq.achar(pa + (long long)sgn * run, ma);
-        if (b == 4) { sb = true; smiss = mb; break; }
-        if (a != b) { sa = a == 4; smiss = ma; break; }
-        ++run;
+        const uint64_t xa = wa.bases(), xb = wb.bases();
+        const uint64_t stop = stop_bytes(xa, xb);
+        if (stop) {
+          const int j = REV ? (63 - __clzll((long long)stop)) >> 3
+                            : (__ffsll((long long)stop) - 1) >> 3;
+          run += REV ? 7 - j : j;
+          const int b = (int)((xb >> (8 * j)) & 0xFF);
+          const int a = (int)((xa >> (8 * j)) & 0xFF);
+          if (b == 4) {
+            sb = true;
+            smiss = seq.bmiss(pb + (long long)sgn * run);
+          } else {
+            sa = a == 4;
+            smiss = seq.amiss(pa + (long long)sgn * run);
+          }
+          break;
+        }
+        run += 8;
+        wa.next();
+        wb.next();
       }
       int pops;
       if (run >= 61) {
@@ -498,37 +679,111 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
       sm += run - pops;
       y += sgn * run;
     }
+#ifdef WAVE_SECTION_CLOCKS
+    bar.sync();   // so that the section holds the band's longest snake
+#endif
+    WCLK(SEC_SNAKE);
 
-    // wave end: pebble drops, DRANK ranks per trip over [A | B] slot order
+    // Round A.  Everything the wave end needs that is ready after the
+    // snake: the clip and window votes, the first drop test with its ranks,
+    // the trigger scan's warp totals and each warp's best (c, rel).
+    //
+    // The trigger scan is the exclusive suffix max (reverse: prefix min) of
+    // c over the band in rel order.  In slot order the rel order is two
+    // segments, slots [sl, W) (segment A, rel t - sl) then [0, sl)
+    // (segment B), so each warp scans its slots segmented at sl, and a
+    // slot adds the totals of the warps after it (reverse: before it) in
+    // its segment, and forward in segment A all of segment B (reverse in
+    // segment B all of segment A).  Slots outside the band hold the fill,
+    // which is neutral.
+    //
+    // bandc and kstar: forward, of the slots with c == bandc only the one
+    // with the largest rel can trigger (every other has excl >= c), and it
+    // does exactly when bandc > besta; reverse, the smallest rel.  So each
+    // warp posts its max (reverse: min) c and the largest (smallest) rel
+    // that holds it, and kstar = low + that rel when any0.
     const int c = (int)(2u * (unsigned)y + (unsigned)k);
     const bool cA = inb && sa, cB = inb && sb;
-    const int clip_any = bar.any(cA || cB);
-    WCLK(SEC_SNAKE);
-    if (Seq::kWindowed) {
-      if (bar.any(smiss)) overflow = 1;
-    }
-    const int more_new = clip_any ? 0 : more;
+    const long long Xa = (long long)y + k;
+    const int Xb = y;
+    bool dA = inb && (REV ? Xa <= NA : Xa >= NA);
+    bool dB = inb && (REV ? Xb <= NB : Xb >= NB);
+    bool nA = dA && (REV ? wma > NA : wma < NA);
+    bool nB = dB && (REV ? wmb > NB : wmb < NB);
+    unsigned bA = __ballot_sync(FULL, nA), bB = __ballot_sync(FULL, nB);
+    const int cm = inb ? c : fill;
+    const bool segA = t >= sl;
+    // op: max forward, min in reverse
+    auto op = [](int a, int b) { return REV ? min(a, b) : max(a, b); };
+    int ex;
     {
-      const long long Xa = (long long)y + k;
-      const int Xb = y;
-      const unsigned ltmask = (1u << wl) - 1;
-      while (true) {
-        const bool dA = inb && (REV ? Xa <= NA : Xa >= NA);
-        const bool dB = inb && (REV ? Xb <= NB : Xb >= NB);
-        if (!bar.any(dA || dB)) break;
-        const bool nA = dA && (REV ? wma > NA : wma < NA);
-        const bool nB = dB && (REV ? wmb > NB : wmb < NB);
-        const unsigned bA = __ballot_sync(FULL, nA);
-        const unsigned bB = __ballot_sync(FULL, nB);
-        if (wl == 0) {
-          sh.balA[wi] = bA;
-          sh.balB[wi] = bB;
+      int v = cm;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        if (!REV) {
+          const int u = __shfl_down_sync(FULL, v, o);
+          if (wl + o < 32 && (segA || t + o < sl)) v = op(u, v);
+        } else {
+          const int u = __shfl_up_sync(FULL, v, o);
+          if (wl >= o && (!segA || t - o >= sl)) v = op(u, v);
         }
-        bar.sync();
+      }
+      ex = REV ? __shfl_up_sync(FULL, v, 1) : __shfl_down_sync(FULL, v, 1);
+      if (REV ? (wl == 0 || t == sl) : (wl == 31 || t + 1 == sl)) ex = fill;
+    }
+    // the warp's max (reverse: min) of c over segment A, segment B, both,
+    // and the largest (smallest) rel that holds the last
+    const int wA = REV ? __reduce_min_sync(FULL, segA ? cm : fill)
+                       : __reduce_max_sync(FULL, segA ? cm : fill);
+    const int wB = REV ? __reduce_min_sync(FULL, segA ? fill : cm)
+                       : __reduce_max_sync(FULL, segA ? fill : cm);
+    const int cw = op(wA, wB);
+    const int rw = REV ? __reduce_min_sync(FULL, cm == cw ? rel : W)
+                       : __reduce_max_sync(FULL, cm == cw ? rel : -1);
+    const int fl = (__any_sync(FULL, cA || cB) ? 1 : 0) |
+                   (__any_sync(FULL, smiss) ? 2 : 0) |
+                   (__any_sync(FULL, dA || dB) ? 4 : 0);
+    const int4* ra = rd.meet(make_int4(wA, wB, cw, rw),
+                             make_int4(fl, (int)bA, (int)bB, 0));
+    // branch-free: the warps after this one (reverse: before) in each
+    // segment, and forward all of segment B (reverse all of segment A)
+    int flags = 0, bandc = fill, aftA = fill, aftB = fill, other = fill;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const int4 r0 = ra[2 * i];
+      flags |= ra[2 * i + 1].x;
+      const bool after = REV ? i < wi : i > wi;
+      aftA = op(aftA, after ? r0.x : fill);
+      aftB = op(aftB, after ? r0.y : fill);
+      other = op(other, REV ? r0.x : r0.y);
+      bandc = op(bandc, r0.z);
+    }
+    const int excl = REV ? (segA ? op(ex, aftA) : op(ex, op(aftB, other)))
+                         : (segA ? op(ex, op(aftA, other)) : op(ex, aftB));
+    int krel = REV ? W : -1;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const int4 r0 = ra[2 * i];
+      krel = r0.z == bandc ? op(krel, r0.w) : krel;
+    }
+    WCLK(SEC_ROUND_A);
+
+    const int clip_any = flags & 1;
+    if (Seq::kWindowed && (flags & 2)) overflow = 1;
+    const int more_new = clip_any ? 0 : more;
+
+    // wave end: pebble drops, DRANK ranks per trip over [A | B] slot order;
+    // the first trip's ranks came with round A, each later trip's test and
+    // ranks take one round
+    if (flags & 4) {
+      const unsigned ltmask = (1u << wl) - 1;
+      const int4* rb = ra;
+      while (true) {
         int preA = 0, preB = 0, totA = 0, totB = 0;
 #pragma unroll
         for (int i = 0; i < NW; ++i) {
-          const int pa = __popc(sh.balA[i]), pb = __popc(sh.balB[i]);
+          const int pa = __popc((unsigned)rb[2 * i + 1].y);
+          const int pb = __popc((unsigned)rb[2 * i + 1].z);
           if (i < wi) {
             preA += pa;
             preB += pb;
@@ -556,48 +811,24 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
         const int cnt = totA + totB;
         avail += cnt < DRANK ? cnt : DRANK;
         if (avail + W >= P) overflow = 1;
+        dA = inb && (REV ? Xa <= NA : Xa >= NA);
+        dB = inb && (REV ? Xb <= NB : Xb >= NB);
+        nA = dA && (REV ? wma > NA : wma < NA);
+        nB = dB && (REV ? wmb > NB : wmb < NB);
+        bA = __ballot_sync(FULL, nA);
+        bB = __ballot_sync(FULL, nB);
+        rb = rd.meet(make_int4(0, 0, 0, 0),
+                     make_int4(__any_sync(FULL, dA || dB), (int)bA, (int)bB,
+                               0));
+        int again = 0;
+#pragma unroll
+        for (int i = 0; i < NW; ++i) again |= rb[2 * i + 1].x;
+        if (!again) break;
       }
     }
-
     WCLK(SEC_DROPS);
 
-    // best / trim triggers: exclusive suffix max (reverse: prefix min) of c
-    // over the band in diagonal order, i.e. in rel order
-    const int cm = inb ? c : fill;
-    sh.sbuf[rel] = cm;
-    bar.sync();
-    {
-      int v = sh.sbuf[t];
-      if (!REV) {
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const int u = __shfl_down_sync(FULL, v, o);
-          if (wl + o < 32) v = u > v ? u : v;
-        }
-        int ex = __shfl_down_sync(FULL, v, 1);
-        if (wl == 31) ex = NEG_BIG;
-        if (wl == 0) sh.wtot[wi] = v;
-        bar.sync();
-        for (int i = wi + 1; i < NW; ++i)
-          ex = sh.wtot[i] > ex ? sh.wtot[i] : ex;
-        sh.sres[t] = ex;
-      } else {
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const int u = __shfl_up_sync(FULL, v, o);
-          if (wl >= o) v = u < v ? u : v;
-        }
-        int ex = __shfl_up_sync(FULL, v, 1);
-        if (wl == 0) ex = I32MAX;
-        if (wl == 31) sh.wtot[wi] = v;
-        bar.sync();
-        for (int i = 0; i < wi; ++i) ex = sh.wtot[i] < ex ? sh.wtot[i] : ex;
-        sh.sres[t] = ex;
-      }
-    }
-    bar.sync();
-    WCLK(SEC_SCAN);
-    const int excl = sh.sres[rel];
+    // best / trim triggers against the best before this wave
     bool trigger;
     if (!REV) {
       const int runbase = besta > excl ? besta : excl;
@@ -611,28 +842,12 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
     trim_table((int)((sTv >> 15) & 0x7FFF), cs.msc, cs.dsc, t2, s2);
     const bool tbl_ok = t1 >= 0 && t2 + s1 >= 0;
     const bool m_ok = sm >= cs.pave;
-    int bandc, lastc;
-    bool any0, any1;
-    if (!REV) {
-      bandc = block_reduce<NW>(cm, red, bar, t, OpMax());
-      lastc = block_reduce<NW>(trigger && m_ok ? c : NEG_BIG, red, bar, t,
-                               OpMax());
-      any0 = bandc > besta;
-      any1 = lastc != NEG_BIG;
-    } else {
-      bandc = block_reduce<NW>(cm, red, bar, t, OpMin());
-      lastc = block_reduce<NW>(trigger && m_ok ? c : I32MAX, red, bar, t,
-                               OpMin());
-      any0 = bandc < besta;
-      any1 = lastc != I32MAX;
-    }
-    const int kstar = block_reduce<NW>(trigger && c == bandc ? k : 0, red,
-                                       bar, t, OpSum());
+    const bool any0 = REV ? bandc < besta : bandc > besta;
     if (any0) {
+      const int kstar = low + krel;
       besty = floordiv(bandc - kstar, 2);
       besta = bandc;
     }
-    if (any1) lasta = lastc;
     if (trigger && m_ok && tbl_ok) {
       ltk = (dif << TRIM_RB) | (REV ? rel : Wm - rel);
       ltc = c;
@@ -640,8 +855,6 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
       ltha = wha;
       lthb = whb;
     }
-
-    WCLK(SEC_REDUCE);
 
     // store the band
     if (inb) {
@@ -653,20 +866,47 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
       MA = wma;
       MB = wmb;
     }
+    WCLK(SEC_TRIGGER);
 
-    // boundary clip + REACH grab
+    // Round B: lastc, and the band prune's hi_rel and lo_rel as one packed
+    // key (max rel + 1, max W - rel) per warp, combined over the warps by a
+    // per-halfword max.  Unless the wave clips, the pruned band is this
+    // wave's band, where V = c.
+    auto prune_key = [&](bool okv, int r) -> unsigned {
+      return (__reduce_max_sync(FULL, okv ? (unsigned)(r + 1) : 0u) << 16) |
+             __reduce_max_sync(FULL, okv ? (unsigned)(W - r) : 0u);
+    };
+    const int lc = trigger && m_ok ? c : fill;
+    const int lw = REV ? __reduce_min_sync(FULL, lc)
+                       : __reduce_max_sync(FULL, lc);
+    const unsigned pk = prune_key(inb && (REV ? c <= besta + WAVE_LAG
+                                              : c >= besta - WAVE_LAG), rel);
+    const int4* rbb = rd.meet(make_int4(lw, (int)pk, 0, 0),
+                              make_int4(0, 0, 0, 0));
+    int lastc = rbb[0].x;
+    unsigned prune = (unsigned)rbb[0].y;
+#pragma unroll
+    for (int i = 1; i < NW; ++i) {
+      const int u = rbb[2 * i].x;
+      lastc = REV ? (u < lastc ? u : lastc) : (u > lastc ? u : lastc);
+      prune = __vmaxu2(prune, (unsigned)rbb[2 * i].y);
+    }
+    if (lastc != fill) lasta = lastc;
+    WCLK(SEC_ROUND_B);
+
+    // boundary clip + REACH grab, then the prune on the post-clip band
     const bool clipped = clip_any && more;
     if (clipped) {
       int aclip, bclip;
       bool hit_a, hit_b;
       if (!REV) {
-        aclip = block_reduce<NW>(cA ? k : I32MAX, red, bar, t, OpMin());
-        bclip = block_reduce<NW>(cB ? k : -I32MAX, red, bar, t, OpMax());
+        aclip = rd.reduce(cA ? k : I32MAX, OpMin());
+        bclip = rd.reduce(cB ? k : -I32MAX, OpMax());
         hit_a = hgh >= aclip;
         hit_b = low <= bclip;
       } else {
-        aclip = block_reduce<NW>(cA ? k : -I32MAX, red, bar, t, OpMax());
-        bclip = block_reduce<NW>(cB ? k : I32MAX, red, bar, t, OpMin());
+        aclip = rd.reduce(cA ? k : -I32MAX, OpMax());
+        bclip = rd.reduce(cB ? k : I32MAX, OpMin());
         hit_a = low <= aclip;
         hit_b = hgh >= bclip;
       }
@@ -674,10 +914,10 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
         const int kc = side == 0 ? aclip : bclip;
         const bool hit = side == 0 ? hit_a : hit_b;
         const bool sel = k == kc;
-        const int Mv = block_reduce<NW>(sel ? M : 0, red, bar, t, OpSum());
-        const int Vv = block_reduce<NW>(sel ? V : 0, red, bar, t, OpSum());
-        const int HAv = block_reduce<NW>(sel ? HA : 0, red, bar, t, OpSum());
-        const int HBv = block_reduce<NW>(sel ? HB : 0, red, bar, t, OpSum());
+        const int Mv = rd.reduce(sel ? M : 0, OpSum());
+        const int Vv = rd.reduce(sel ? V : 0, OpSum());
+        const int HAv = rd.reduce(sel ? HA : 0, OpSum());
+        const int HBv = rd.reduce(sel ? HB : 0, OpSum());
         if (hit && morem <= Mv) {
           morem = Mv;
           morea = Vv;
@@ -694,27 +934,26 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
         if (hit_a) low = aclip + 1;
         if (hit_b) hgh = bclip - 1;
       }
-    }
-
-    WCLK(SEC_CLIP);
-
-    // band prune on the post-clip band
-    {
       const int rel2 = floormod(t - low, W);
       const bool inb2 = low + rel2 <= hgh;
-      const bool ok = inb2 && (REV ? V <= besta + WAVE_LAG
-                                   : V >= besta - WAVE_LAG);
-      const int hi_rel = block_reduce<NW>(ok ? rel2 : -1, red, bar, t,
-                                          OpMax());
-      const int lo_rel = block_reduce<NW>(ok ? rel2 : W, red, bar, t,
-                                          OpMin());
-      if (hi_rel >= 0) {
-        hgh = low + hi_rel;
-        low = low + (lo_rel < hi_rel ? lo_rel : hi_rel);
-      }
+      const unsigned pk2 = prune_key(
+          inb2 && (REV ? V <= besta + WAVE_LAG : V >= besta - WAVE_LAG),
+          rel2);
+      const int4* rc = rd.meet(make_int4(0, (int)pk2, 0, 0),
+                               make_int4(0, 0, 0, 0));
+      prune = (unsigned)rc[0].y;
+#pragma unroll
+      for (int i = 1; i < NW; ++i)
+        prune = __vmaxu2(prune, (unsigned)rc[2 * i].y);
     }
+    WCLK(SEC_CLIP);
 
-    WCLK(SEC_PRUNE);
+    // band prune: hi_rel = (prune >> 16) - 1, lo_rel = W - (prune & 0xFFFF)
+    if (prune >> 16) {
+      const int lo0 = low;
+      hgh = lo0 + (int)(prune >> 16) - 1;
+      low = lo0 + W - (int)(prune & 0xFFFF);
+    }
 
     // next wave?  A clipped lane first resolves its REACH rest test
     const bool go = REV ? lasta <= besta + TRIM_MLAG
@@ -723,11 +962,11 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
     live = more && go && !overflow;
     if (clipped) {
       int mb = 0, ma = 0;
-      const int rb = seq.bchar(bbase + besty + soff, mb);
-      const int ra = seq.achar(abase + (long long)(besta - besty) + soff,
-                               ma);
-      if (Seq::kWindowed && (mb | ((rb != 4) & ma))) overflow = 1;
-      const bool rest = rb != 4 && ra != 4;
+      const int rbv = seq.bchar(bbase + besty + soff, mb);
+      const int rav = seq.achar(abase + (long long)(besta - besty) + soff,
+                                ma);
+      if (Seq::kWindowed && (mb | ((rbv != 4) & ma))) overflow = 1;
+      const bool rest = rbv != 4 && rav != 4;
       more = rest;
       live = rest && go && !overflow;
     }
@@ -739,7 +978,7 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
   }
 
   // trim point: the slot with the largest (dif, rel) key (_trim_extract)
-  const int kmax = block_reduce<NW>(ltk, red, bar, t, OpMax());
+  const int kmax = rd.reduce(ltk, OpMax());
   if (kmax > 0 && ltk == kmax) {
     pro[0] = ltc;
     pro[1] = lty;

@@ -69,6 +69,10 @@ using namespace wavebody;
 
 // Stage one window [wst, wst + L) of the sequence memory mem[0, LM) into
 // shared memory; bytes past LM read 4.  t/nt: this thread and the stride.
+// The snake's word walks need no padding around it: they load an 8-byte
+// word whole only when it lies inside [0, L) and read the rest byte by byte
+// (wave_body.cuh WordWalk); each window starts 16-byte aligned (L is a
+// multiple of 128), so every word inside is whole.
 __device__ __forceinline__ void stage_window(uint8_t* dst,
                                              const uint8_t* __restrict__ mem,
                                              long long LM, long long wst,

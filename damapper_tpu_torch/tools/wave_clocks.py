@@ -31,8 +31,8 @@ import numpy as np
 from .probe_run import card, emit, open_card, out_file
 
 # the sections of csrc/wave_body.cuh, in its SEC_* order
-SECTIONS = ("prologue", "store", "pick", "snake", "drops", "scan", "reduce",
-            "clip", "prune", "tail")
+SECTIONS = ("prologue", "store", "pick", "snake", "round_a", "drops",
+            "trigger", "round_b", "clip", "tail")
 # (mode, layout, W); lanepack runs on the half-block barrier
 CASES = (("classic", "plain", 128), ("classic", "plain", 64),
          ("classic", "lanepack", 64), ("persistent", "plain", 64))

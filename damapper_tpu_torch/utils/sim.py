@@ -5,7 +5,8 @@ helpers draw from the same numpy generator, so one seed gives both packages
 the same dataset.  ``make_lane_cases`` builds a sentinel-separated sequence
 memory plus one seed per read, the layout a loaded DB gives the wave;
 ``make_long_lane_cases`` the same for long reads, with the window length the
-persistent kernels give them.
+persistent kernels give them; ``make_adversarial_lane_cases`` the same for
+exact repeats, long exact runs and seeds next to the memory's ends.
 """
 
 from __future__ import annotations
@@ -65,8 +66,6 @@ def make_lane_cases(seed, ncases, glen=6000, rlen=2500, err=0.15, mix=False,
     genome = sim_genome(rng, glen)
     g = dbio.seq_to_numeric(genome)
 
-    flat = [np.array([4], np.uint8)]
-    off = 1
     entries = []
     for _ in range(ncases):
         rl = (int(rng.integers(min(rmin, rlen), rlen + 1)) if mix
@@ -96,21 +95,85 @@ def make_lane_cases(seed, ncases, glen=6000, rlen=2500, err=0.15, mix=False,
         b = dbio.seq_to_numeric("".join(out))
         apos, bp = truth[len(truth) // 2]
         entries.append((b, apos + 1, bp + 1))
+    return _lane_memory(g, entries)
 
-    gbase = off
-    flat.append(g)
-    off += len(g)
-    insts = []
-    for b, apos, bp in entries:
-        flat.append(np.array([4], np.uint8))
-        off += 1
-        bbase = off
-        flat.append(b)
-        off += len(b)
-        insts.append(dict(abase=gbase, alen=len(g), bbase=bbase, blen=len(b),
+
+def _lane_memory(g, reads):
+    """[4 | genome | 4 | read_0 | ... | 4] and one seed per read.  g: the
+    genome's codes; reads: (codes, apos, bpos) with the seed point."""
+    flat, off, insts = [np.array([4], np.uint8), g], 1 + len(g), []
+    for b, apos, bp in reads:
+        flat += [np.array([4], np.uint8), b]
+        insts.append(dict(abase=1, alen=len(g), bbase=off + 1, blen=len(b),
                           diag=apos - bp, anti=apos + bp, flags=0))
+        off += 1 + len(b)
     flat.append(np.array([4], np.uint8))
     return np.concatenate(flat), insts
+
+
+def make_adversarial_lane_cases(seed, glen=3000):
+    """Lanes that push the snake and the ends of the sequence memory: a
+    genome whose [500, 1100) is repeated exactly at [1800, 2400), and reads
+    that are exact copies (snakes of hundreds of bases, through the repeat),
+    reads with one substitution 60, 61 or 64 bases after (or before) the
+    seed (runs at the history's 61-bit edge and at whole words), reads with
+    2% and 15% error across the repeat, noisy reads with exact stretches of
+    300 and 600 bases that later waves walk into, and seeds on the first
+    and last bases of the genome and of the reads: the genome starts at
+    index 1 of the memory, and the last read ends next to its end.  Returns
+    make_lane_cases' pair (seqmem, insts) from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    g = list(sim_genome(rng, glen))
+    g[1800:2400] = g[500:1100]
+    genome = "".join(g)
+
+    def read(lo, hi, err, at, fwd=(), rev=(), exact=(0, 0)):
+        """The genome's [lo, hi) with errors (make_lane_cases' model) but
+        none on the genome's [exact); the seed is the true pair `at` (an
+        index into the read's matched pairs), and a substitution ends an
+        exact run of each length in fwd after the seed point and in rev
+        before it."""
+        frag = list(genome[lo:hi])
+        out, truth, bpos = [], [], 0
+        for i, ch in enumerate(frag):
+            if err and not exact[0] <= lo + i < exact[1] \
+                    and rng.random() < err:
+                t = rng.random()
+                if t < 0.55:
+                    out += ["ACGT"[rng.integers(0, 4)], ch]
+                    truth.append((lo + i, bpos + 1))
+                    bpos += 2
+                elif t < 0.80:
+                    pass
+                else:
+                    out.append("ACGT"[("ACGT".index(ch) + 1) % 4])
+                    bpos += 1
+            else:
+                out.append(ch)
+                truth.append((lo + i, bpos))
+                bpos += 1
+        apos, bp = truth[at]
+        for j in [bp + 1 + r for r in fwd] + [bp - r for r in rev]:
+            out[j] = "ACGT"[("ACGT".index(out[j]) + 1) % 4]
+        return dbio.seq_to_numeric("".join(out)), apos + 1, bp + 1
+
+    mid = 200
+    reads = [read(0, 1500, 0.0, 0), read(0, 1500, 0.0, 2),
+             read(glen - 1500, glen, 0.0, -1),
+             read(450, 1150, 0.0, 350), read(1750, 2450, 0.02, 350),
+             read(300, 2700, 0.15, 1200), read(0, 2000, 0.15, 1),
+             read(glen - 2000, glen, 0.15, -2)]
+    reads += [read(1000, 1400, 0.0, mid, (r,), (r,)) for r in (60, 61, 64)]
+    reads += [read(1900, 2300, 0.0, mid, (r,)) for r in (198, 8, 7)]
+    # noisy reads with an exact stretch that later waves reach: 300 bases,
+    # and the whole repeat copy
+    reads += [read(200, 1700, 0.15, 150, exact=(700, 1000)),
+              read(200, 1700, 0.15, -150, exact=(700, 1000)),
+              read(1200, 2900, 0.15, 100, exact=(1800, 2400)),
+              read(1200, 2900, 0.15, -100, exact=(1800, 2400))]
+    # the last read: its seed on its last base, next to the memory's end
+    reads.append(read(glen - 600, glen, 0.0, -1))
+    return _lane_memory(dbio.seq_to_numeric(genome), reads)
 
 
 def make_long_lane_cases(seed, ncases, rmin=40_000, rlen=45_000, err=0.15):

@@ -20,7 +20,8 @@ from damapper_tpu_torch.ops.wave_cuda import (IN_FIELDS, LAYOUTS, OUT_FIELDS,
 from damapper_tpu_torch.ops.wave_persistent import (
     persistent_windows, wave_lanes_persistent, wave_lanes_persistent_ref,
     window_length)
-from damapper_tpu_torch.utils.sim import make_lane_cases
+from damapper_tpu_torch.utils.sim import (make_adversarial_lane_cases,
+                                          make_lane_cases)
 
 SPEC = new_align_spec(0.85, 100, [.25, .25, .25, .25], True)
 CONSTS = (SPEC.trace_space, SPEC.ave_path, SPEC.mscore, SPEC.dscore)
@@ -98,6 +99,35 @@ def test_persistent_kernels_match_plain_version_on_card(cuda_device, reverse,
             torch.cuda.synchronize()
             assert getattr(wave_lanes_persistent, cnt) == launches + 1
             _assert_equal(k, r, len(insts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_wave_kernels_match_plain_version_on_adversarial_lanes(cuda_device,
+                                                               reverse):
+    """All six wave kernels on the adversarial set (exact repeats, exact
+    runs of 60-600 bases, seeds next to the memory's ends): the classic
+    ones at W=128 and W=64, the persistent ones by both window routes."""
+    seqmem, insts = make_adversarial_lane_cases(7)
+    lanes = lanes_from_numpy(insts, seqmem, cuda_device)
+    for w in (64, 128):
+        args = dict(ts=CONSTS[0], pave=CONSTS[1], msc=CONSTS[2],
+                    dsc=CONSTS[3], W=w, P=P, reverse=reverse)
+        r = wave_lanes_ref(**lanes, **args)
+        for layout in LAYOUTS:
+            if w == 64 or layout != "lanepack":
+                _assert_equal(wave_lanes(**lanes, **args, layout=layout), r,
+                              len(insts))
+    L = window_length(max(s["blen"] for s in insts))
+    args = dict(ts=CONSTS[0], pave=CONSTS[1], msc=CONSTS[2], dsc=CONSTS[3],
+                W=64, P=P, L=L, reverse=reverse)
+    r = wave_lanes_persistent_ref(**lanes, **args)
+    for layout in LAYOUTS:
+        for smem in (True, False):
+            _assert_equal(wave_lanes_persistent(**lanes, **args,
+                                                layout=layout,
+                                                window_in_smem=smem), r,
+                          len(insts))
 
 
 PROBE_CASES = [(64, "block"), (64, "half"), (128, "block")]
