@@ -38,20 +38,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 at their full shapes (their path; records under a
                 temporary directory), ns per application and bound printed
                 per pattern.
-  4. mapping  — the damapper path (host index and seed match, native chain
-                sweep, reporter, wave engine on the card) on BASELINE
-                config 1: a 4.6 Mb reference in contigs and 1,000 simulated
-                PacBio reads of 3-9 kb at ~15% error, -k20 -e.85, in six
-                wave modes: classic (the default), classic + packops,
+  4. mapping  — the damapper path (device index and seed match on the card,
+                native chain sweep, reporter, wave engine on the card) on
+                BASELINE config 1: a 4.6 Mb reference in contigs and 1,000
+                simulated PacBio reads of 3-9 kb at ~15% error, -k20 -e.85,
+                in six wave modes: classic (the default), classic + packops,
                 classic + lanepack, persistent, persistent + packops,
-                persistent + lanepack.  Each mode's kernel must have been
-                launched; every run's .las records must equal the classic
-                run's; 64 of each run's device lanes, sampled from --seed,
-                are re-aligned by the host oracle and must match path and
-                trace.
+                persistent + lanepack; then classic with the host index and
+                classic with the device chain sweep.  Each mode's kernel
+                must have been launched, every device index must lie on the
+                card; every run's .las records must equal the classic run's;
+                64 of each run's device lanes, sampled from --seed, are
+                re-aligned by the host oracle and must match path and trace.
+  4b. genome  — bench.py's default dataset (140 Mb reference in 280 contigs,
+                the same reads): classic with the device index twice (the
+                second run must hit the reference-index cache) and with the
+                host index; identical .las records; then each device-index
+                program timed at this size, the join under every
+                DAMAPPER_JOIN mode held to the default's.
   5. las      — a small dataset mapped with the card's wave engine in the
-                six modes and with the host oracle: identical .las records
-                and -p track bytes.
+                six modes (device index), in the six modes again with the
+                packed uploads (DAMAPPER_PACK_UPLOAD=1) and classic with
+                the host index, and with the host oracle: identical .las
+                records and -p track bytes.
   6. kernels  — one JSON line with each ported kernel's launches on its
                 path's run (a wave kernel's mapping run; the probe tools'
                 run), its agreement with the plain version, and its time
@@ -66,6 +75,7 @@ import argparse
 import concurrent.futures
 import copy
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -81,6 +91,9 @@ LEAD_CYCLES = 20_000_000
 # copies of phase 3's 128 read lanes in one launch: 1,024 lanes, more than
 # the card holds at once at W=128 (csrc/wave.cu's dense kernel)
 TILES = 8
+# phase 4b's reference: bench.py's default dataset, the BASELINE config-3
+# genome size
+GENOME_LEN = 140_000_000
 
 
 class SmokeFailure(RuntimeError):
@@ -684,11 +697,14 @@ def _read_launches():
             _counters()}
 
 
-def _map_once(torch, work, seed, nreads, mode, switches, kernel):
+def _map_once(torch, work, seed, nreads, mode, switches, kernel, tag=None):
     """One mapping run of the dataset in `work` in one wave mode, with the
-    oracle check of 64 sampled device lanes.  Returns (launches by kernel,
-    .las record keys)."""
+    oracle check of 64 sampled device lanes; tag names the run when it is
+    not the mode's own.  The index backend is the default (device) unless
+    switches ask for the host; every index built must lie on the card.
+    Returns (launches by kernel, .las record keys, LAST_STATS)."""
     from damapper_tpu_torch.io import las as lasio
+    from damapper_tpu_torch.ops import device_index as dix
     from damapper_tpu_torch.ops import wave as host_wave
     from damapper_tpu_torch.ops import wave_engine
     from damapper_tpu_torch.pipeline import mapper
@@ -697,6 +713,8 @@ def _map_once(torch, work, seed, nreads, mode, switches, kernel):
     # copies: the reporter fuses paths in place)
     rounds = []
     orig = wave_engine.WaveEngine._batch_inner
+    orig_sort = dix.device_sort_kmers
+    built = []
 
     def recording(self, Adev, Bdev, Anp, Bnp, seeds):
         res = orig(self, Adev, Bdev, Anp, Bnp, seeds)
@@ -704,9 +722,16 @@ def _map_once(torch, work, seed, nreads, mode, switches, kernel):
             rounds.append((self.spec, Anp, Bnp, seeds, copy.deepcopy(res)))
         return res
 
-    out = work / mode.replace("+", "_")
+    def recording_sort(*a, **kw):
+        idx = orig_sort(*a, **kw)
+        built.append((idx.key.device.type, idx.pos.device.type))
+        return idx
+
+    tag = tag or mode
+    out = work / tag.replace("+", "_").replace(" ", "_")
     out.mkdir()
     wave_engine.WaveEngine._batch_inner = recording
+    dix.device_sort_kmers = recording_sort
     try:
         cfg = mapper.DamapperConfig(kmer=20, ave_error=.85, **switches)
         torch.cuda.synchronize()
@@ -721,15 +746,27 @@ def _map_once(torch, work, seed, nreads, mode, switches, kernel):
         launches = _read_launches()
     finally:
         wave_engine.WaveEngine._batch_inner = orig
+        dix.device_sort_kmers = orig_sort
     st = dict(mapper.LAST_STATS)
     peak = torch.cuda.max_memory_allocated()
     recs, _ = lasio.read_las(a_path)
     ndev = st["n_lanes"] - st["n_fallback"] - st["n_hostmin"]
-    print(f"--- {mode} (wave_mode {st['wave_mode']}, W={st['band_cap']})")
+    print(f"--- {tag} (wave_mode {st['wave_mode']}, W={st['band_cap']}, "
+          f"index {st['index_backend']}, chain {st['chain_backend']}, "
+          f"ref index builds {st['ref_index_builds']}, cache hits "
+          f"{st['ref_index_cache_hits']})")
     print("stage seconds: " + "  ".join(f"{k}={v:.2f}"
                                         for k, v in st["times"].items()))
     print(f"wall {wall:.2f}s  reads/s {nreads / wall:.1f}  "
           f"records {len(recs)}")
+    want = switches.get("index_backend", "device")
+    check(st["index_backend"] == want, f"the {tag} run took the "
+          f"{st['index_backend']} index, not the {want} index")
+    if want == "device":
+        check(built and all(d == ("cuda", "cuda") for d in built),
+              f"the {tag} run's device indexes lay on {built}")
+    else:
+        check(not built, f"the {tag} run built a device index")
     print(f"lanes: {st['n_lanes']} total, {ndev} device, {st['n_winmiss']} "
           f"retried on the classic kernel, {st['n_fallback']} "
           f"overflow-fallback, {st['n_hostmin']} tiny-round host")
@@ -766,27 +803,189 @@ def _map_once(torch, work, seed, nreads, mode, switches, kernel):
           f"{nbad} paths differ", flush=True)
     check(len(pick) > 0 and nbad == 0,
           "sampled lanes differ from the host oracle")
-    return launches, [r.key() for r in recs]
+    return launches, [r.key() for r in recs], st
+
+
+# runs of the classic mode beside the six wave modes: (name, switches)
+CLASSIC_RUNS = (("classic, host index", dict(index_backend="host")),
+                ("classic, device chain", dict(chain_backend="device")))
 
 
 def phase_mapping(torch, work, seed, glen, nreads):
-    phase("4 mapping: BASELINE config 1, six wave modes")
-    t0 = time.time()
+    phase("4 mapping: BASELINE config 1, six wave modes, device index")
+    t_phase = t0 = time.time()
     _write_dataset(work, seed, glen, max(2, glen // 500_000), nreads,
                    3000, 9000, 260_000_000)
     print(f"dataset: {glen:,} bp reference, {nreads} reads "
           f"({time.time() - t0:.1f}s to simulate and write)")
-    launches, keys = {}, {}
+    launches, keys, stats = {}, {}, {}
     for mode, switches, kernel in MODES:
-        got, keys[mode] = _map_once(torch, work, seed, nreads, mode,
-                                    switches, kernel)
+        got, keys[mode], stats[mode] = _map_once(torch, work, seed, nreads,
+                                                 mode, switches, kernel)
         launches[kernel] = got[kernel]
-    for mode, _, _ in MODES[1:]:
+    for tag, switches in CLASSIC_RUNS:
+        _, keys[tag], stats[tag] = _map_once(
+            torch, work, seed, nreads, "classic", switches, "wave_lanes",
+            tag=tag)
+    for mode in [m for m, _, _ in MODES[1:]] + [t for t, _ in CLASSIC_RUNS]:
         same = keys[mode] == keys["classic"]
         print(f"{mode}: .las records identical to the classic run: {same}")
         check(same, f"the {mode} run's .las records differ from the classic "
               f"run's")
+    c, h, d = (stats[k]["times"] for k in ("classic", CLASSIC_RUNS[0][0],
+                                           CLASSIC_RUNS[1][0]))
+    print(f"index + match seconds: device {c['index']:.3f} + "
+          f"{c['match']:.3f}, host {h['index']:.3f} + {h['match']:.3f}; "
+          f"chain seconds: host sweep {c['chain']:.3f}, device sweep "
+          f"{d['chain']:.3f}")
+    print(f"mapping phase {time.time() - t_phase:.1f}s")
     return launches
+
+
+def _sync_ms(torch, fn, reps=3):
+    """Median wall of `reps` calls of fn, each between two synchronizes
+    (host clock: the calls pull scalars or hits and wait for the card
+    anyway), and the last call's result."""
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(ts)), out
+
+
+def _index_programs(torch, work, dev):
+    """The device index's programs at the dataset's full size, each timed
+    (median of 3 synchronized calls) on the block the mapping runs index:
+    the packed and plain uploads and the unpack alone, the three index
+    builds, the join under every DAMAPPER_JOIN mode (its b-ranges held to
+    the default's) and the pair match under every mode (its hits held to
+    the default's), the count epilogue, the -M limit, the emission of
+    each orientation.  Returns {program: ms}."""
+    from damapper_tpu_torch.ops import device_index as dix
+    from damapper_tpu_torch.pipeline import mapper
+    reads = mapper.read_block(str(work / "reads.db"), [], 20)
+    ref = mapper.read_block(str(work / "ref.1.dam"), [], 20)
+    ms = {}
+    ms["upload_plain_ref"], seq = _sync_ms(
+        torch, lambda: dix.device_upload_seq(ref, dev))
+    os.environ["DAMAPPER_PACK_UPLOAD"] = "1"
+    try:
+        ms["upload_packed_ref"], packed = _sync_ms(
+            torch, lambda: dix.device_upload_seq(ref, dev))
+    finally:
+        del os.environ["DAMAPPER_PACK_UPLOAD"]
+    check(torch.equal(seq, packed), "the packed and plain uploads differ")
+    del packed
+    cap = seq.shape[0]
+    b = np.asarray(ref.reads["boff"], np.int64)
+    rcap = dix._bucket(len(b), lo=1 << 8)
+    st = np.zeros(rcap, np.int32)
+    en = np.zeros(rcap, np.int32)
+    st[:len(b)] = b
+    en[:len(b)] = b + ref.reads["rlen"]
+    pk = torch.from_numpy(dix.pack_seq(ref.seq, cap)).to(dev)
+    st, en = torch.from_numpy(st).to(dev), torch.from_numpy(en).to(dev)
+    ms["unpack_ref"], un = _sync_ms(
+        torch, lambda: dix.unpack_seq_dev(pk, st, en))
+    check(torch.equal(un, seq), "the unpack differs from the upload")
+    del pk, un
+    rseq = dix.device_upload_seq(reads, dev)
+    ms["build_ref"], aidx = _sync_ms(
+        torch, lambda: dix.device_sort_kmers(ref, 20, seq_dev=seq))
+    del seq
+    ms["build_reads_fwd"], bf = _sync_ms(
+        torch, lambda: dix.device_sort_kmers(reads, 20, seq_dev=rseq))
+    ms["build_reads_rc"], bc = _sync_ms(
+        torch, lambda: dix.device_sort_kmers(reads, 20, comp=True,
+                                             seq_dev=rseq))
+    del rseq
+    btight = dix._tight_bucket(aidx.n, aidx.key.shape[0])
+    bkey = aidx.key[:btight]
+    q = torch.cat([bf.key, bc.key])
+    nq = bf.key.shape[0]
+    mem = mapper._physical_memory()
+    db_bytes = reads.sizeof() + ref.sizeof()
+    base = hits0 = None
+    for mode in ("bsearch", "merge", "scan", "sortg", "sort"):
+        ms[f"join_{mode}"], rng_ = _sync_ms(torch, lambda: dix._join_ranges(
+            bkey, aidx.n, q, mode, qsplit=nq if mode == "merge" else None))
+        if base is None:
+            base = rng_
+        check(all(torch.equal(x, y) for x, y in zip(base, rng_)),
+              f"join {mode} gives other b-ranges than bsearch")
+        os.environ["DAMAPPER_JOIN"] = mode
+        try:
+            ms[f"match_pair_{mode}"], hits = _sync_ms(
+                torch, lambda: dix.device_match_seeds_pair(
+                    bf, bc, aidx, mem, db_bytes), reps=1)
+        finally:
+            del os.environ["DAMAPPER_JOIN"]
+        if hits0 is None:
+            hits0 = hits
+        check(all(np.array_equal(getattr(x, f), getattr(y, f))
+                  for x, y in zip(hits0, hits)
+                  for f in ("aread", "bread", "apos", "diag")),
+              f"the pair match under join {mode} gives other hits")
+    b_lo, b_hi = base
+    ms["count_epilogue"], (cb, ct, gram) = _sync_ms(
+        torch, lambda: dix._count_epilogue(bf.key, bf.n, b_lo[:nq],
+                                           b_hi[:nq], True))
+    avail = dix._avail_budget(mem, db_bytes, bf.n, aidx.n)
+    ms["device_limit"], limit = _sync_ms(
+        torch, lambda: dix._device_limit(gram, min(max(avail, 0),
+                                                   dix._IMAX)))
+    ms["emit_fwd"], hf = _sync_ms(torch, lambda: dix._finish_match(
+        bf, aidx, b_lo[:nq], cb, ct, gram, mem, db_bytes, False))
+    cb2, ct2, gram2 = dix._count_epilogue(bc.key, bc.n, b_lo[nq:],
+                                          b_hi[nq:], True)
+    ms["emit_comp"], hc = _sync_ms(torch, lambda: dix._finish_match(
+        bc, aidx, b_lo[nq:], cb2, ct2, gram2, mem, db_bytes, True))
+    check(len(hf) == len(hits0[0]) and len(hc) == len(hits0[1]),
+          "the emission's hit counts differ from the pair match's")
+    print(f"index programs at {len(ref.seq):,} reference bases (cap "
+          f"{aidx.key.shape[0]:,}, {aidx.n:,} k-mers, tight {btight:,}), "
+          f"{len(reads.seq):,} read bases ({bf.n:,} + {bc.n:,} k-mers), "
+          f"{len(hf):,} + {len(hc):,} hits; ms per call:")
+    print("  " + "  ".join(f"{k}={v:.2f}" for k, v in ms.items()))
+    return ms
+
+
+def phase_genome(torch, work, seed, glen, nreads):
+    """The BASELINE config-3 genome size (bench.py's default dataset):
+    mapped with the device index (twice: the second run hits the
+    reference-index cache) and with the host index, classic wave; the
+    .las records must be identical.  Then the index programs timed."""
+    phase(f"4b mapping: {glen:,} bp genome, device vs host index")
+    t_phase = t0 = time.time()
+    _write_dataset(work, seed, glen, max(2, glen // 500_000), nreads,
+                   3000, 9000, 260_000_000)
+    print(f"dataset: {glen:,} bp reference, {nreads} reads "
+          f"({time.time() - t0:.1f}s to simulate and write)")
+    keys, stats = {}, {}
+    for tag, switches in (("device index", {}),
+                          ("device index, cached", {}),
+                          ("host index", dict(index_backend="host"))):
+        _, keys[tag], stats[tag] = _map_once(
+            torch, work, seed, nreads, "classic", switches, "wave_lanes",
+            tag=tag)
+    check((stats["device index"]["ref_index_builds"],
+           stats["device index, cached"]["ref_index_cache_hits"]) == (1, 1),
+          "the second device-index run did not hit the reference-index "
+          "cache")
+    for tag in ("device index, cached", "host index"):
+        same = keys[tag] == keys["device index"]
+        print(f"{tag}: .las records identical to the device-index run: "
+              f"{same}")
+        check(same, f"the {tag} run's .las records differ")
+    torch.cuda.reset_peak_memory_stats()
+    progs = _index_programs(torch, work, torch.device("cuda"))
+    print(f"index programs: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} bytes")
+    print(f"genome phase {time.time() - t_phase:.1f}s")
+    return progs
 
 
 def phase_las(work):
@@ -797,12 +996,26 @@ def phase_las(work):
     outs = {}
     runs = [(f"card_{mode.replace('+', '_')}", dict(host_min=0, **switches))
             for mode, switches, _ in MODES]
+    runs.append(("card_classic_host_index",
+                 dict(host_min=0, index_backend="host")))
+    # the packed uploads (DAMAPPER_PACK_UPLOAD=1): bucket-padded sections
+    # with a sentinel tail, which every wave kernel must read as it reads
+    # the plain bytes
+    runs += [(f"card_{mode.replace('+', '_')}_packed_upload",
+              dict(host_min=0, pack_upload=True, **switches))
+             for mode, switches, _ in MODES]
     for nm, kw in runs + [("oracle", dict(wave_backend="oracle"))]:
         d = work / nm
         d.mkdir()
-        a_path, _ = mapper.run_damapper(
-            str(work / "ref.dam"), str(work / "reads.db"),
-            mapper.DamapperConfig(profile=True, **kw), out_dir=str(d))
+        kw = dict(kw)
+        if kw.pop("pack_upload", False):
+            os.environ["DAMAPPER_PACK_UPLOAD"] = "1"
+        try:
+            a_path, _ = mapper.run_damapper(
+                str(work / "ref.dam"), str(work / "reads.db"),
+                mapper.DamapperConfig(profile=True, **kw), out_dir=str(d))
+        finally:
+            os.environ.pop("DAMAPPER_PACK_UPLOAD", None)
         recs, tspace = lasio.read_las(a_path)
         outs[nm] = (tspace, [r.key() for r in recs],
                     [(d / f".reads{e}").read_bytes()
@@ -810,6 +1023,10 @@ def phase_las(work):
         if nm != "oracle":
             check(mapper.LAST_STATS["n_lanes"] > 0,
                   f"the {nm} run aligned no lane on the card")
+        want = kw.get("index_backend", "device")
+        check(mapper.LAST_STATS["index_backend"] == want,
+              f"the {nm} run took the {mapper.LAST_STATS['index_backend']} "
+              f"index, not the {want} index")
     for nm, _ in runs:
         same_las = outs[nm][:2] == outs["oracle"][:2]
         same_prof = outs[nm][2] == outs["oracle"][2]
@@ -854,6 +1071,9 @@ def main(argv=None) -> int:
         launches = phase_mapping(torch, tmp / "map", args.seed, args.glen,
                                  args.nreads)
         launches.update(probe_launches)
+        (tmp / "genome").mkdir()
+        phase_genome(torch, tmp / "genome", args.seed, GENOME_LEN,
+                     args.nreads)
         phase_las(tmp / "las")
     phase("6 kernels")
     print(f"total {time.time() - t_start:.1f}s")

@@ -92,8 +92,9 @@ class ChainState:
     repeat-profile coverage counters."""
 
     def __init__(self, nreads: int, kmer: int, profile=False, rlens=None,
-                 spacing=100):
+                 spacing=100, device=None):
         self.nreads = nreads
+        self.device = device    # where process_hits(device=True) sweeps
         self.kmer = kmer
         self.hithr = HITMIN * kmer
         self.cands: list[list[Candidate]] = [[] for _ in range(nreads)]
@@ -276,16 +277,17 @@ class ChainState:
         """Chain all hits of one Match_Filter pass (one ref block, one
         orientation).  hits must be sorted by (aread, bread, apos).
 
-        device=True asks for the batched device sweep, which this package
-        does not have yet: it raises NotImplementedError.  native=True uses
-        the C++ sweep (native/chain_sweep.cpp); falls back to the Python
-        sweep if the native library cannot be built."""
+        device=True runs the batched sweep (ops.chain_device) on this
+        state's device (None: the card) for groups within its capacity and
+        the native sweep for the rest, with identical results.  native=True
+        uses the C++ sweep (native/chain_sweep.cpp); falls back to the
+        Python sweep if the native library cannot be built."""
         n = len(hits)
         if n == 0:
             return
         if device:
-            raise NotImplementedError(
-                "the device chain sweep is not ported; use the host sweep")
+            self._process_hits_device(hits, bstart, comp)
+            return
         if native:
             try:
                 self._process_hits_native(hits, bstart, comp)
@@ -309,22 +311,30 @@ class ChainState:
                     self._consider(ar, h, br + bstart, comp)
 
     def _process_hits_native(self, hits, bstart: int, comp: int) -> None:
-        import ctypes
+        apos1 = hits.apos + 1
+        for ar, br, *cand in self._native_sweep(hits.aread, hits.bread,
+                                                apos1, apos1 - hits.diag):
+            self._push_candidate(ar, *cand, br + bstart, comp)
 
+    def _native_sweep(self, aread, bread, apos1, bpos1) -> list:
+        """The C++ sweep (native/chain_sweep.cpp) over hits sorted by
+        (aread, bread), 1-based end coords: [(ar, br, cost, ab, ae, bb, be,
+        length, jumps), ...] in group order."""
         from ..native import chain_lib
 
         lib = chain_lib()
-        aread = np.ascontiguousarray(hits.aread, np.int32)
-        bread = np.ascontiguousarray(hits.bread, np.int32)
-        apos1 = np.ascontiguousarray(hits.apos + 1, np.int32)
-        bpos1 = np.ascontiguousarray(apos1 - hits.diag, np.int32)
+        aread = np.ascontiguousarray(aread, np.int32)
+        bread = np.ascontiguousarray(bread, np.int32)
+        apos1 = np.ascontiguousarray(apos1, np.int32)
+        bpos1 = np.ascontiguousarray(bpos1, np.int32)
         h = lib.chain_sweep(len(aread),
                             aread.ctypes.data, bread.ctypes.data,
                             apos1.ctypes.data, bpos1.ctypes.data, self.kmer)
+        out = []
         try:
             nmeta = lib.result_meta_len(h)
             if nmeta == 0:
-                return
+                return out
             meta = np.ctypeslib.as_array(lib.result_meta(h),
                                          shape=(nmeta,)).reshape(-1, 8)
             njmp = lib.result_jumps_len(h)
@@ -334,15 +344,56 @@ class ChainState:
             cur = 0
             for row in meta:
                 ar, br, cost, ab, ae, bb, be, length = (int(x) for x in row)
-                # jump pairs = number of remaining links after compression
-                npairs = 0
-                j = cur
-                # count pairs: they equal the compressed-chain link count
-                npairs = length
-                jumps = [(int(jarr[2 * p + j]), int(jarr[2 * p + j + 1]))
-                         for p in range(npairs)]
-                cur += 2 * npairs
-                self._push_candidate(ar, cost, ab, ae, bb, be, length, jumps,
-                                     br + bstart, comp)
+                # one (a, b) jump pair per link of the compressed chain
+                jumps = [(int(jarr[cur + 2 * p]), int(jarr[cur + 2 * p + 1]))
+                         for p in range(length)]
+                cur += 2 * length
+                out.append((ar, br, cost, ab, ae, bb, be, length, jumps))
         finally:
             lib.result_free(h)
+        return out
+
+    def _process_hits_device(self, hits, bstart: int, comp: int) -> None:
+        """Batched device sweep for bucketable groups + native sweep for
+        oversized ones, candidates pushed in exact group order."""
+        from . import chain_device
+
+        aread, bread = hits.aread, hits.bread
+        apos1 = np.ascontiguousarray(hits.apos + 1, np.int32)
+        bpos1 = np.ascontiguousarray(apos1 - hits.diag, np.int32)
+        n = len(apos1)
+        brk = np.flatnonzero((np.diff(aread.astype(np.int64)) != 0) |
+                             (np.diff(bread.astype(np.int64)) != 0)) + 1
+        starts = np.concatenate([[0], brk])
+        ends = np.concatenate([brk, [n]])
+
+        dev = chain_device.sweep_hits_device(apos1, bpos1, starts, ends,
+                                             self.kmer, self.device)
+
+        # native sweep over the concatenation of oversized groups (group
+        # order preserved; the native library segments by (aread, bread))
+        big = [gi for gi in range(len(starts)) if gi not in dev]
+        big_res: dict[int, list] = {}
+        if big:
+            rows = np.concatenate([np.arange(starts[gi], ends[gi])
+                                   for gi in big])
+            gi_of = {(int(aread[starts[gi]]), int(bread[starts[gi]])): gi
+                     for gi in big}
+            for ar, br, *cand in self._native_sweep(
+                    aread[rows], bread[rows], apos1[rows], bpos1[rows]):
+                big_res.setdefault(gi_of[(ar, br)], []).append(cand)
+
+        for gi in range(len(starts)):
+            s, e = int(starts[gi]), int(ends[gi])
+            ar = int(aread[s])
+            br = int(bread[s])
+            if gi in dev:
+                ems = chain_device.emit_group(dev[gi], apos1[s:e],
+                                              bpos1[s:e], e - s, self.kmer,
+                                              self.hithr)
+            else:
+                ems = big_res.get(gi, [])
+            for (cost, ab, ae, bb, be, length, jumps) in ems:
+                if cost >= self.hithr:
+                    self._push_candidate(ar, cost, ab, ae, bb, be, length,
+                                         jumps, br + bstart, comp)

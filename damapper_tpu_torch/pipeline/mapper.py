@@ -1,10 +1,19 @@
 """End-to-end mapper: the damapper CLI equivalent (reference damapper.c).
 
-Orchestrates: open reads block -> host k-mer index -> for each reference
-block (forward and complemented): host k-mer index + seed match + native
-chain sweep -> reporter over the full reference, whose wave alignments run
-on the batched wave engine (ops.wave_engine, the CUDA kernel on the card)
--> sorted .las output (+ -C dual output, -p repeat profile track).
+Orchestrates: open reads block -> k-mer index -> for each reference block
+(forward and complemented): k-mer index + seed match + chain sweep ->
+reporter over the full reference, whose wave alignments run on the batched
+wave engine (ops.wave_engine, the CUDA kernel on the card) -> sorted .las
+output (+ -C dual output, -p repeat profile track).
+
+The index and the seed match run on the device (ops.device_index: one
+upload of the reads serves both orientations, the reads' revcomp index is
+built once, one forward index per reference block, cached across calls,
+and one join matches both orientations) or on the host (ops.kmers,
+ops.seeds): ``index_backend``, else DAMAPPER_INDEX, else the device when
+the run is on the card and the host when the caller asked for the CPU.
+The chain sweep runs on the host (native C++) or on the device
+(ops.chain_device): ``chain_backend``, else DAMAPPER_CHAIN, else the host.
 
 The external LAsort/LAcat/LAmerge post-pass of the reference (damapper.c:
 882-911) is replaced by the in-process chain-preserving sort of io.las.
@@ -21,6 +30,7 @@ import numpy as np
 from ..io import db as dbio
 from ..io import las as lasio
 from ..io.tracks import merge_mask_tracks
+from ..ops import device_index as dix
 from ..ops.chain import ChainState
 from ..ops.kmers import sort_kmers, sort_kmers_partitioned
 from ..ops.seeds import match_seeds, match_seeds_multi
@@ -29,6 +39,7 @@ from ..ops.wave_engine import WaveEngine, resolve_device
 from .reporter import Reporter
 
 WAVE_BACKENDS = ("device", "oracle")
+BACKENDS = ("host", "device")
 
 
 def _physical_memory() -> int:
@@ -66,13 +77,17 @@ class DamapperConfig:
     wave rounds with fewer lanes run on the host oracle.  persistent,
     packops, lanepack: the wave engine's mode (None: the environment's
     DAMAPPER_WAVE_PERSISTENT, DAMAPPER_WAVE_PACKOPS, DAMAPPER_WAVE_LANEPACK;
-    see ops.wave_engine)."""
+    see ops.wave_engine).  index_backend: "device" (ops.device_index on
+    ``device``) or "host"; None: DAMAPPER_INDEX, else "device" on the card
+    and "host" on the CPU.  chain_backend: "host" or "device"
+    (ops.chain_device on ``device``); None: DAMAPPER_CHAIN, else "host"."""
 
     def __init__(self, kmer=20, suppress=0, mem_limit=None, ave_error=.85,
                  spacing=100, best_tie=1.0, masks=(), verbose=False,
                  profile=False, do_a=True, do_b=False, map_order=True,
                  wave_backend="device", device=None, host_min=16,
-                 persistent=None, packops=None, lanepack=None):
+                 persistent=None, packops=None, lanepack=None,
+                 index_backend=None, chain_backend=None):
         self.kmer = kmer
         self.suppress = suppress
         self.mem_limit = _physical_memory() if mem_limit is None else mem_limit
@@ -93,6 +108,85 @@ class DamapperConfig:
         self.host_min = host_min
         self.wave_mode = dict(persistent=persistent, packops=packops,
                               lanepack=lanepack)
+        self.index_backend = _backend(
+            "index_backend", index_backend, "DAMAPPER_INDEX",
+            "device" if self.device.type == "cuda" else "host")
+        self.chain_backend = _backend("chain_backend", chain_backend,
+                                      "DAMAPPER_CHAIN", "host")
+        if self.index_backend == "device":
+            dix._join_mode()    # an unknown DAMAPPER_JOIN raises here
+
+
+def _backend(name, arg, env, default) -> str:
+    """A backend choice: the argument, else the environment, else the
+    default; "host" or "device"."""
+    val = arg or os.environ.get(env) or default
+    if val not in BACKENDS:
+        raise ValueError(f"{name} must be one of {BACKENDS}, got {val!r}")
+    return val
+
+
+# Device-resident reference-index cache across run_damapper calls: mapping
+# many read blocks against one reference (the reference's per-block HPC job
+# layout) rebuilds the SAME ref-block index each call.  Keyed on the block
+# (stub path, block number), the mtime AND size of every file the index
+# depends on (stub, .bps, each mask track's files), k, -t, the masks and
+# the device.  Bounded by payload bytes: DAMAPPER_REFCACHE_MB (default
+# 2600), DAMAPPER_REFCACHE=0 turns it off.
+_ref_index_cache: dict = {}
+_ref_index_cache_bytes = [0]
+
+
+def _refcache_on() -> bool:
+    return os.environ.get("DAMAPPER_REFCACHE", "1") != "0"
+
+
+def _ref_cache_get(key):
+    if not _refcache_on():
+        return None
+    ent = _ref_index_cache.get(key)
+    if ent is not None:
+        _ref_index_cache[key] = _ref_index_cache.pop(key)  # LRU touch
+        return ent[0]
+    return None
+
+
+def _ref_cache_put(key, aindex):
+    if not _refcache_on():
+        return
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 (aindex.key, aindex.pos, aindex.boffs, aindex.rlens))
+    budget = int(os.environ.get("DAMAPPER_REFCACHE_MB", "2600")) << 20
+    if nbytes > budget:
+        return
+    while _ref_index_cache and _ref_index_cache_bytes[0] + nbytes > budget:
+        oldest = next(iter(_ref_index_cache))     # LRU: insertion-ordered
+        _, old_bytes = _ref_index_cache.pop(oldest)
+        _ref_index_cache_bytes[0] -= old_bytes
+    _ref_index_cache[key] = (aindex, nbytes)
+    _ref_index_cache_bytes[0] += nbytes
+
+
+def _file_id(path):
+    """(mtime, size) of a file, (-1.0, -1) when it is missing."""
+    try:
+        st = os.stat(path)
+    except FileNotFoundError:
+        return (-1.0, -1)
+    return (st.st_mtime, st.st_size)
+
+
+def _ref_cache_key(pwd, aroot_stub, stubp, k, cfg):
+    """The cache key of reference block k: block paths are virtual (the
+    stub and .idx encode the blocks), so the stub's identity and the block
+    number, plus every file the index reads."""
+    deps = [_file_id(stubp),
+            _file_id(os.path.join(pwd, "." + aroot_stub + ".bps"))]
+    for m in cfg.masks:
+        deps += [_file_id(p) for p in dbio.track_paths(
+            os.path.join(pwd, "." + aroot_stub), k, m)]
+    return (os.path.abspath(stubp), tuple(deps), k, cfg.kmer, cfg.suppress,
+            tuple(cfg.masks), str(cfg.device))
 
 
 def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
@@ -123,11 +217,24 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
     _, broot, _ = dbio._split_db_path(reads_path)
 
     times = {"load": 0., "index": 0., "match": 0., "chain": 0., "align": 0.}
+    use_device_index = cfg.index_backend == "device"
     _t = time.time()
     reads_db = read_block(reads_path, cfg.masks, cfg.kmer)
     times["load"] += time.time() - _t
     _t = time.time()
-    bindex = sort_kmers(reads_db, cfg.kmer, cfg.suppress)
+    if use_device_index:
+        # one upload serves both orientations; the reads' revcomp
+        # index, built once, lets both orientations match against a single
+        # forward reference index per block (hits stay identical by
+        # emission-time frame mirroring)
+        reads_seq_dev = dix.device_upload_seq(reads_db, cfg.device)
+        bindex = dix.device_sort_kmers(reads_db, cfg.kmer, cfg.suppress,
+                                       seq_dev=reads_seq_dev)
+        bindex_rc = dix.device_sort_kmers(reads_db, cfg.kmer, cfg.suppress,
+                                          comp=True, seq_dev=reads_seq_dev)
+        del reads_seq_dev
+    else:
+        bindex = sort_kmers(reads_db, cfg.kmer, cfg.suppress)
     times["index"] += time.time() - _t
     if cfg.verbose:
         # stage counters mirroring the reference -v (map.c:692-697,792-799)
@@ -136,11 +243,14 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
               f"({broot})", file=sys.stderr)
 
     state = ChainState(reads_db.nreads, cfg.kmer, profile=cfg.profile,
-                       rlens=reads_db.reads["rlen"], spacing=cfg.spacing)
+                       rlens=reads_db.reads["rlen"], spacing=cfg.spacing,
+                       device=cfg.device)
 
     # ref-index builds recycle their buffers: each aindex is dead once its
     # hits are chained, so the next build reuses the warm pages
     kscratch: dict = {}
+    cache_hits = cache_builds = 0
+    rkey = cached = None
     for k in range(1, nblocks + 1):
         blk_path = os.path.join(pwd, f"{aroot_stub}.{k}"
                                 + (".dam" if isdam else ".db"))
@@ -156,12 +266,38 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
         use_sub = (sub_bases > 0 and cfg.suppress == 0
                    and ref_blk.totlen > 2 * sub_bases)
 
+        if use_device_index:
+            rkey = _ref_cache_key(pwd, aroot_stub, stubp, k, cfg)
+            cached = _ref_cache_get(rkey)
         for comp in (0, 1):
-            if comp:
+            if comp and not use_device_index:
                 ref_blk.complement_inplace()
             db_bytes = reads_db.sizeof() + ref_blk.sizeof()
             _t = time.time()
-            if use_sub:
+            if use_device_index:
+                # one forward index per block serves both orientations: the
+                # reads' revcomp index provides the complement pass
+                # (damapper.c:851-861 without the second Sort_Kmers)
+                if comp == 0:
+                    if cached is not None:
+                        cache_hits += 1
+                        aindex = cached
+                    else:
+                        cache_builds += 1
+                        aindex = dix.device_sort_kmers(
+                            ref_blk, cfg.kmer, cfg.suppress,
+                            device=cfg.device)
+                        _ref_cache_put(rkey, aindex)
+                times["index"] += time.time() - _t
+                _t = time.time()
+                if comp == 0:
+                    # one combined join serves both orientations; the comp
+                    # hits wait for the comp pass of the loop
+                    hits, pending_cmp = dix.device_match_seeds_pair(
+                        bindex, bindex_rc, aindex, cfg.mem_limit, db_bytes)
+                else:
+                    hits = pending_cmp
+            elif use_sub:
                 subs = sort_kmers_partitioned(ref_blk, cfg.kmer, sub_bases,
                                               kscratch)
                 aindex = None
@@ -183,7 +319,8 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
                       f"kmers, hit count = {len(hits):,}", file=sys.stderr)
             before = sum(len(c) for c in state.cands)
             _t = time.time()
-            state.process_hits(hits, bstart, comp)
+            state.process_hits(hits, bstart, comp,
+                               device=cfg.chain_backend == "device")
             times["chain"] += time.time() - _t
             if cfg.verbose:
                 # candidate counters (map.c:3184-3208 epilogue)
@@ -196,11 +333,18 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
                       f"     {tfilt:,} candidates "
                       f"({tfilt / atot / btot:e} of matrix)",
                       file=sys.stderr)
+        # the block's buffers die here, before the next block's build (a
+        # cached index stays resident for the next call)
+        aindex = cached = hits = pending_cmp = None
+    # the reads' indexes are dead before the align stage's uploads
+    bindex = bindex_rc = None
 
     if nblocks == 1:
-        # block 1 IS the full DB: un-complement it (the orientation loop
-        # left it reversed) instead of re-decoding the .bps
-        ref_blk.complement_inplace()
+        # block 1 IS the full DB: un-complement it (the host orientation
+        # loop left it reversed; the device comp index never touches the
+        # host copy) instead of re-decoding the .bps
+        if not use_device_index:
+            ref_blk.complement_inplace()
         ref_full = ref_blk
     else:
         ref_full = read_block(os.path.join(pwd, aroot_stub
@@ -222,6 +366,11 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
         print(f"      {len(a_recs):,} mapped segments", file=sys.stderr)
         print("      stage seconds: " + "  ".join(
             f"{k}={v:.2f}" for k, v in times.items()), file=sys.stderr)
+        print(f"      index {cfg.index_backend} (DAMAPPER_INDEX), chain "
+              f"{cfg.chain_backend} (DAMAPPER_CHAIN), join "
+              f"{dix._join_mode()} (DAMAPPER_JOIN), upload "
+              f"{'packed' if dix.packed_upload_on() else 'plain'} "
+              f"(DAMAPPER_PACK_UPLOAD)", file=sys.stderr)
         if engine is not None:
             # wave-engine telemetry: a silent drift to the host-oracle
             # fallback would destroy device perf while keeping output
@@ -261,8 +410,10 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
     # launches of each kernel
     global LAST_STATS
     LAST_STATS = dict(times=dict(times),
-                      ref_index_cache_hits=0,
-                      ref_index_builds=0,
+                      index_backend=cfg.index_backend,
+                      chain_backend=cfg.chain_backend,
+                      ref_index_cache_hits=cache_hits,
+                      ref_index_builds=cache_builds,
                       total_waves=getattr(engine, "total_waves", 0),
                       band_cap=getattr(engine, "W", 0),
                       cell_updates=(getattr(engine, "total_waves", 0)
@@ -322,10 +473,13 @@ def expand_db_block_arg(arg: str) -> list[str]:
 
 
 def main_damapper(argv: list[str]) -> int:
-    """CLI with the reference's flag surface (damapper.c:53-56).  The wave
-    engine runs on the CUDA card; DAMAPPER_DEVICE=cpu runs it on the CPU.
-    The DAMAPPER_WAVE_{PERSISTENT,PACKOPS,LANEPACK} switches pick the wave
-    mode (ops.wave_engine)."""
+    """CLI with the reference's flag surface (damapper.c:53-56).  The run
+    is on the CUDA card; DAMAPPER_DEVICE=cpu runs it on the CPU.  The
+    DAMAPPER_WAVE_{PERSISTENT,PACKOPS,LANEPACK} switches pick the wave mode
+    (ops.wave_engine), DAMAPPER_INDEX and DAMAPPER_CHAIN the index and
+    chain backends (DamapperConfig), DAMAPPER_JOIN the device join and
+    DAMAPPER_PACK_UPLOAD=1 the 2-bit packed sequence upload
+    (ops.device_index)."""
     kw = dict()
     args = []
     flags = set()

@@ -16,8 +16,9 @@ map.c:1925-2871):
     zone top (map.c:2714-2816), emitting START/NEXT/BEST flags.
 
 The batched path uploads each sequence section as it is (one uint8 copy to
-the engine's device) and aligns every round of seeds with the wave engine
-(ops.wave_engine).
+the engine's device; DAMAPPER_PACK_UPLOAD=1: 2-bit packed and unpacked
+there, ops.device_index.pack_upload) and aligns every round of seeds with
+the wave engine (ops.wave_engine).
 """
 
 from __future__ import annotations
@@ -26,9 +27,11 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..io.las import (BEST_FLAG, COMP_FLAG, LA, NEXT_FLAG, START_FLAG,
                       TRACE_XOVR)
+from ..ops import device_index as dix
 from ..ops.chain import HITMIN
 from ..ops.wave import ACOMP_FLAG, PathRec, local_alignment
 
@@ -43,25 +46,43 @@ TIE_GAP = 500      # map.c:49
 # process-level device copy of the full-reference align sequence: every
 # read block of a job list aligns against the SAME reference memory, so it
 # is uploaded once.  Keyed on the DB's identity (path, block, length, and
-# the .bps file's mtime and size) and the device; bounded by
-# DAMAPPER_SEQCACHE_MB (default 1600).  DAMAPPER_REFCACHE=0 turns the cache
-# off for both the get and the put.
+# the .bps file's mtime and size), the device and the upload format;
+# bounded by DAMAPPER_SEQCACHE_MB (default 1600).  DAMAPPER_REFCACHE=0
+# turns the cache off for both the get and the put.
 _ref_seq_cache: dict = {}
 
 
-def _ref_seq_cached(upload, ref_db, device):
+def _upload_section(flat, boffs, rlens, device):
+    """One sequence section (sentinel layout) on ``device``: the plain
+    uint8 bytes (WaveEngine.upload); DAMAPPER_PACK_UPLOAD=1: 2-bit packed
+    and unpacked there, bucket-padded with a tail that unpacks to
+    sentinels (the wave kernels read the sentinel 4 past every read, and
+    never past the memory's length)."""
+    if not dix.packed_upload_on():
+        return torch.from_numpy(np.ascontiguousarray(flat, np.uint8)).to(
+            device)
+    return dix.pack_upload(flat, boffs, rlens, dix._bucket(len(flat)),
+                           device)
+
+
+def _ref_seq_cached(ref_db, device):
+    def upload():
+        return _upload_section(ref_db.seq, ref_db.reads["boff"],
+                               ref_db.reads["rlen"], device)
+
     if os.environ.get("DAMAPPER_REFCACHE", "1") == "0":
-        return upload(ref_db.seq)
+        return upload()
     try:
         bps = ref_db.path + ".bps"
         key = (ref_db.path, ref_db.part, int(ref_db.totlen),
-               os.path.getmtime(bps), os.path.getsize(bps), str(device))
+               os.path.getmtime(bps), os.path.getsize(bps), str(device),
+               dix.packed_upload_on())
     except OSError:
-        return upload(ref_db.seq)
+        return upload()
     ent = _ref_seq_cache.get(key)
     if ent is not None:
         return ent
-    dev = upload(ref_db.seq)
+    dev = upload()
     budget = int(os.environ.get("DAMAPPER_SEQCACHE_MB", "1600")) << 20
     if int(dev.shape[0]) <= budget:
         _ref_seq_cache.clear()   # one reference at a time is the job
@@ -400,7 +421,8 @@ class Reporter:
         The A side ([reads | comp reads]) and B side (reference) upload
         SEPARATELY: the reference section is identical for every read
         block of a job list, so its upload is served from a process-level
-        cache (_ref_seq_cache) instead of being re-shipped per block."""
+        cache (_ref_seq_cache) instead of being re-shipped per block (the
+        upload analog of the ref-index cache)."""
         nreads = reads_db.nreads
         rd_seq = reads_db.seq
         rb = reads_db.reads["boff"]
@@ -418,9 +440,9 @@ class Reporter:
         ref_seq = ref_db.seq
         flat_a = np.concatenate([rd_seq, comp_seq])
         comp_off = len(rd_seq)
-        dev_a = self.engine.upload(flat_a)
-        dev_b = _ref_seq_cached(self.engine.upload, ref_db,
-                                self.engine.device)
+        dev_a = _upload_section(flat_a, np.concatenate([rb, rb + comp_off]),
+                                np.concatenate([rl, rl]), self.engine.device)
+        dev_b = _ref_seq_cached(ref_db, self.engine.device)
 
         tasks = []
         per_read = [[] for _ in range(nreads)]

@@ -165,3 +165,80 @@ def test_probe_kernels_match_plain_version_on_card(cuda_device, W, barrier):
         k = k if isinstance(k, tuple) else (k,)
         for a, b in zip(k, plain()):
             assert torch.equal(a, b), name
+
+
+def _small_dbs(tmp, seed=5, glen=40_000, nreads=10):
+    """A two-contig reference and simulated reads, written with the port's
+    own io and loaded."""
+    from damapper_tpu_torch.io import db as dbio
+    from damapper_tpu_torch.io import fasta
+    from damapper_tpu_torch.utils.sim import sim_genome, sim_read
+    rng = np.random.default_rng(seed)
+    g = sim_genome(rng, glen)
+    dbio.create_dam(str(tmp / "ref.dam"),
+                    [fasta.FastaEntry("c0", g[:glen // 2]),
+                     fasta.FastaEntry("c1", g[glen // 2:])], bsize=glen)
+    dbio.create_db(str(tmp / "reads.db"), [
+        fasta.FastaEntry(f"r{i}", sim_read(rng, g, min_len=1500,
+                                           max_len=4000)[0])
+        for i in range(nreads)])
+    out = []
+    for f in ("reads.db", "ref.dam"):
+        db = dbio.DazzDB.open(str(tmp / f))
+        db.trim()
+        db.load_bases()
+        out.append(db)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("join", ["merge", "scan", "sortg", "sort",
+                                  "bsearch"])
+def test_device_index_and_hits_on_card_equal_cpu(cuda_device, tmp_path,
+                                                 monkeypatch, join):
+    """The packed upload, the index (forward, revcomp, -t) and the hits of
+    both orientations on CUDA tensors equal the same functions' run on CPU
+    tensors, under every join."""
+    from damapper_tpu_torch.ops import device_index as dix
+    monkeypatch.setenv("DAMAPPER_JOIN", join)
+    reads, ref = _small_dbs(tmp_path)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        seq = dix.device_upload_seq(reads, dev)
+        assert seq.device.type == torch.device(dev).type
+        idx = [dix.device_sort_kmers(reads, 16, seq_dev=seq),
+               dix.device_sort_kmers(reads, 16, comp=True, seq_dev=seq),
+               dix.device_sort_kmers(ref, 16, device=dev),
+               dix.device_sort_kmers(reads, 12, 3, device=dev)]
+        hits = dix.device_match_seeds_pair(*idx[:3], 1 << 34, 1000)
+        runs[str(dev)] = (seq.cpu(), [(i.key.cpu(), i.pos.cpu(), i.n)
+                                      for i in idx], hits)
+    (sa, ia, ha), (sb, ib, hb) = runs.values()
+    assert torch.equal(sa, sb)
+    for a, b in zip(ia, ib):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        assert a[2] == b[2]
+    for x, y in zip(ha, hb):
+        assert len(x) > 0
+        for f in ("aread", "bread", "apos", "diag"):
+            assert np.array_equal(getattr(x, f), getattr(y, f)), f
+
+
+@pytest.mark.cuda
+def test_device_chain_sweep_on_card_equals_cpu(cuda_device):
+    """The device chain sweep's state on CUDA equals its CPU run."""
+    from damapper_tpu_torch.ops import chain_device
+    rng = np.random.default_rng(3)
+    starts = np.array([0, 300, 310, 1500])
+    ends = np.array([300, 310, 1500, 1600])
+    apos1 = np.concatenate([np.sort(rng.integers(25, 9000, e - s))
+                            for s, e in zip(starts, ends)]).astype(np.int32)
+    bpos1 = (apos1 - rng.integers(-50, 50, len(apos1))).astype(np.int32)
+    a = chain_device.sweep_hits_device(apos1, bpos1, starts, ends, 20,
+                                       device="cpu")
+    b = chain_device.sweep_hits_device(apos1, bpos1, starts, ends, 20,
+                                       device=cuda_device)
+    assert sorted(a) == sorted(b) == [0, 1, 2, 3]
+    for gi in a:
+        for x, y in zip(a[gi], b[gi]):
+            assert np.array_equal(x, y)

@@ -13,8 +13,8 @@ import pytest
 import torch
 
 import damapper_tpu_torch
-from damapper_tpu_torch.ops import (probes, wave_cuda, wave_engine,
-                                    wave_persistent)
+from damapper_tpu_torch.ops import (chain_device, device_index, probes,
+                                    wave_cuda, wave_engine, wave_persistent)
 from damapper_tpu_torch.pipeline import mapper
 from damapper_tpu_torch.tools import (carry_probe, floor_probe, ops_probe,
                                       wave_clocks)
@@ -173,6 +173,37 @@ def test_probe_wrappers_never_fall_back():
     """No try in the probe module: a CUDA request launches or raises."""
     tree = ast.parse(pathlib.Path(probes.__file__).read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+@pytest.mark.parametrize("mod", [device_index, chain_device],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+def test_device_modules_never_fall_back(mod):
+    """No try in the device-index or device-chain modules: a CUDA request
+    runs on the card or raises, never on the host instead."""
+    tree = ast.parse(pathlib.Path(mod.__file__).read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_device_index_without_card_raises(monkeypatch, tmp_path):
+    """DAMAPPER_INDEX=device with no card raises (the config and every
+    device-index entry point); with device="cpu" it is a CPU request."""
+    from damapper_tpu_torch.io import db as dbio
+    from damapper_tpu_torch.io import fasta
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("DAMAPPER_INDEX", "device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mapper.DamapperConfig()
+    assert mapper.DamapperConfig(device="cpu").index_backend == "device"
+    dbio.create_db(str(tmp_path / "r.db"),
+                   [fasta.FastaEntry("r0", "ACGT" * 100)])
+    db = dbio.DazzDB.open(str(tmp_path / "r.db"))
+    db.trim()
+    db.load_bases()
+    for call in (lambda: device_index.device_upload_seq(db),
+                 lambda: device_index.device_sort_kmers(db, 12),
+                 lambda: device_index.device_upload_seq(db, "cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 @pytest.mark.parametrize("tool", [floor_probe, ops_probe, carry_probe,
