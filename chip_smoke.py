@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed 42] [--nreads 1000] [--glen 4600000]
 
-Phases, in order; any failure exits non-zero and prints no result line:
+Phases, in order; any failure exits non-zero, prints no result line and
+ends with {"ok": false, "phase": <the phase>, "error": <the exception>}:
 
   1. device   — the card's name, count, and nvidia-smi name and power limit;
                 no card is a failure.
@@ -61,10 +62,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 packed uploads (DAMAPPER_PACK_UPLOAD=1) and classic with
                 the host index, and with the host oracle: identical .las
                 records and -p track bytes.
+  7. plan     — the plan path on phase 4's DBs: the reads split by the
+                port's dbsplit into 4 or 5 blocks, a JSON plan from the
+                port's plan subcommand (one block a job, -k20 -e.85), run by
+                parallel.launch over two torch.distributed (gloo) ranks that
+                share the card, rank 0 running lacheck and lamerge.  Every
+                rank must map on the card and launch the classic kernel; the
+                merged .las must equal a direct run of the whole DB on the
+                card record for record, pass lacheck -vS, and give the same
+                lashow -ca bytes; wall times and reads/s of both printed.
   6. kernels  — one JSON line with each ported kernel's launches on its
                 path's run (a wave kernel's mapping run; the probe tools'
                 run), its agreement with the plain version, and its time
-                beside its bound and the plain version's time.
+                beside its bound and the plain version's time; launches_plan
+                is its count over phase 7's ranks.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -73,14 +84,18 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import copy
+import io
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 
@@ -105,8 +120,19 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+# the phase running now, named by the failure line
+PHASE = {"name": "0 setup"}
+
+
 def phase(name):
+    PHASE["name"] = name
     print(f"\n=== {name} ===", flush=True)
+
+
+def failure_line(exc) -> str:
+    """The last line of a failed run: the phase and the exception."""
+    return json.dumps({"ok": False, "phase": PHASE["name"],
+                       "error": f"{type(exc).__name__}: {exc}"[:500]})
 
 
 def phase_device(torch):
@@ -1036,22 +1062,124 @@ def phase_las(work):
         check(same_las and same_prof, f"{nm} and oracle outputs differ")
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=42)
-    ap.add_argument("--nreads", type=int, default=1000)
-    ap.add_argument("--glen", type=int, default=4_600_000)
-    args = ap.parse_args(argv)
+def _rank_lines(log, rank, what):
+    """The rest of each of rank's log lines that start with `what`."""
+    head = f"[rank {rank}] {what} "
+    return [ln[len(head):] for ln in log.splitlines() if ln.startswith(head)]
 
-    if not (HERE / "damapper_tpu_torch" / "csrc" / "wave.cu").exists():
-        print("chip_smoke: damapper_tpu_torch is not beside this script",
-              file=sys.stderr)
-        return 2
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(HERE))
+
+def _lashow_ca(env, dbs, las_dir):
+    """Start `lashow -ca` of las_dir/reads.ref.las (named relative to
+    las_dir, so both runs print the same header) in its own process."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "damapper_tpu_torch.cli", "lashow", "-ca",
+         str(dbs / "ref.dam"), str(dbs / "reads.db"), "reads.ref.las"],
+        cwd=str(las_dir), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE)
+
+
+def phase_plan(torch, src, work, nreads, name):
+    """The plan path: phase 4's DBs split into blocks, planned and run over
+    two ranks on the one card, held to a direct run of the whole DB."""
+    phase("7 plan: BASELINE config 1 over two ranks on one card")
+    from damapper_tpu_torch import cli
+    from damapper_tpu_torch.io import db as dbio
+    from damapper_tpu_torch.io import las as lasio
+    from damapper_tpu_torch.parallel import launch
+    from damapper_tpu_torch.pipeline import mapper
+    t_phase = time.time()
+    for f in src.iterdir():
+        if f.is_file():
+            shutil.copy2(f, work / f.name)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        # blocks of 1/4.5 of the reads' bases: 4 or 5 blocks
+        totlen = dbio.DazzDB.open("reads.db").totlen
+        check(cli.main(["dbsplit", f"-s{totlen / 4.5e6:.6f}",
+                        "reads.db"]) == 0, "dbsplit failed")
+        nblocks = dbio.read_stub("reads.db").nblocks
+        check(nblocks >= 4, f"dbsplit made {nblocks} blocks, not 4 or more")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["plan", "-fjson", "-B1", "-k20", "-e.85", "ref",
+                           "reads"])
+        check(rc == 0, "the plan subcommand failed")
+    finally:
+        os.chdir(cwd)
+    plan = json.loads(buf.getvalue())
+    check(len(plan["jobs"]) == nblocks and plan["merge"],
+          "the plan has not one job a block and a merge")
+    print(f"{nblocks} blocks; jobs: "
+          + "; ".join(j["cmd"] for j in plan["jobs"]))
+    res = launch.run_plan_multihost(json.dumps(plan), nprocs=2,
+                                    workdir=str(work))
+    for r, log in enumerate(res["logs"]):
+        print(f"--- rank {r} log ---\n{log.rstrip()}")
+    check(res["rc"] == 0, f"the plan run exited {res['rc']}")
+    launches, rank_s = {}, []
+    for r, log in enumerate(res["logs"]):
+        check(_rank_lines(log, r, "exit") == ["rc=0"],
+              f"rank {r} did not exit 0")
+        mapped = _rank_lines(log, r, "blocks")
+        mine = [j["blocks"] for j in plan["jobs"] if j["host"] % 2 == r]
+        check(len(mapped) == len(mine) + 1 and all(
+            ln.endswith(f" on cuda:0 ({name})") for ln in mapped[:-1]),
+            f"rank {r}'s log does not name the card for each of its "
+            f"{len(mine)} jobs")
+        rank_s.append(float(mapped[-1].split(" in ")[1].rstrip("s")))
+        got = json.loads(_rank_lines(log, r, "launches")[0])
+        check(got["wave_lanes"] > 0, f"rank {r} launched no wave_lanes")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    merged = work / "reads.ref.las"
+    check(cli.main(["lacheck", "-vS", str(merged)]) == 0,
+          "lacheck -vS fails on the merged .las")
+
+    direct = work / "direct"
+    direct.mkdir()
+    cfg = mapper.DamapperConfig(kmer=20, ave_error=.85)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    a_path, _ = mapper.run_damapper(str(work / "ref.dam"),
+                                    str(work / "reads.db"), cfg,
+                                    out_dir=str(direct))
+    torch.cuda.synchronize()
+    direct_s = time.time() - t0
+    recs, tspace = lasio.read_las(str(merged))
+    drecs, dtspace = lasio.read_las(a_path)
+    same = tspace == dtspace and lasio.las_equal(recs, drecs)
+    print(f"merged .las: {len(recs)} records, identical to the direct "
+          f"run's {len(drecs)}: {same}")
+    check(same and len(recs) > 0, "the merged .las differs from the direct "
+          "run's")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(HERE) + os.pathsep + env.get("PYTHONPATH", "")
+    shows = [_lashow_ca(env, work, d) for d in (work, direct)]
+    try:
+        outs = [p.communicate(timeout=600) for p in shows]
+    finally:
+        for p in shows:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(shows, outs):
+        check(p.returncode == 0, f"lashow -ca failed: {err.decode()[-500:]}")
+    print(f"lashow -ca: {len(outs[0][0])} bytes, identical: "
+          f"{outs[0][0] == outs[1][0]}")
+    check(outs[0][0] == outs[1][0], "lashow -ca of the merged and the "
+          "direct .las differ")
+    print(f"plan wall {res['seconds']:.2f}s (rank walls "
+          + ", ".join(f"{s:.2f}s" for s in rank_s)
+          + f"): reads/s {nreads / res['seconds']:.1f}; direct run "
+          f"{direct_s:.2f}s: reads/s {nreads / direct_s:.1f}")
+    print(f"plan launches {launches}")
+    print(f"plan phase {time.time() - t_phase:.1f}s")
+    return launches
+
+
+def run(torch, args) -> None:
+    """Every phase, then the kernels line and the passing last line."""
     from damapper_tpu_torch.ops import wave_cuda, wave_persistent
     t_start = time.time()
     name, count, card = phase_device(torch)
@@ -1063,7 +1191,7 @@ def main(argv=None) -> int:
         kern[wave_persistent.KERNEL_NAMES[lay]] = k
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = pathlib.Path(tmp)
-        for d in ("probes", "map", "las"):
+        for d in ("probes", "map", "las", "plan"):
             (tmp / d).mkdir()
         probe_kern, probe_launches = phase_probes(torch, args.seed,
                                                   tmp / "probes")
@@ -1075,6 +1203,8 @@ def main(argv=None) -> int:
         phase_genome(torch, tmp / "genome", args.seed, GENOME_LEN,
                      args.nreads)
         phase_las(tmp / "las")
+        plan_launches = phase_plan(torch, tmp / "map", tmp / "plan",
+                                   args.nreads, name)
     phase("6 kernels")
     print(f"total {time.time() - t_start:.1f}s")
     src = "damapper_tpu_torch/csrc/"
@@ -1089,6 +1219,7 @@ def main(argv=None) -> int:
     rows += [(nm, "probes.cu", tpu) for nm, tpu in PROBES.items()]
     kernels = [dict(name=nm, route="cuda", source=src + f, replaces=tpu,
                     launches=launches[nm],
+                    launches_plan=plan_launches.get(nm, 0),
                     match=kern[nm]["max_abs_err"] == 0, **kern[nm],
                     library_ms=None)
                for nm, f, tpu in rows]
@@ -1096,6 +1227,37 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--nreads", type=int, default=1000)
+    ap.add_argument("--glen", type=int, default=4_600_000)
+    args = ap.parse_args(argv)
+
+    PHASE["name"] = "0 setup"
+    if not (HERE / "damapper_tpu_torch" / "csrc" / "wave.cu").exists():
+        msg = "damapper_tpu_torch is not beside this script"
+        print(f"chip_smoke: {msg}", file=sys.stderr)
+        print(failure_line(SmokeFailure(msg)), flush=True)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        msg = "no CUDA device is available"
+        print(f"chip_smoke: {msg}", file=sys.stderr)
+        print(failure_line(SmokeFailure(msg)), flush=True)
+        return 2
+    sys.path.insert(0, str(HERE))
+    try:
+        run(torch, args)
+    except Exception as e:
+        # the run's one boundary: name the phase that failed, as the last
+        # line, after the traceback
+        traceback.print_exc()
+        sys.stderr.flush()
+        print(failure_line(e), flush=True)
+        return 1
     return 0
 
 

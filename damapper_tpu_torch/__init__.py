@@ -11,6 +11,11 @@ The same pipeline as the JAX package beside it, ported module by module:
                       csrc/wave.cu), driven by ops.wave_engine
   * reporting       — LA fusion/chain-graph/zone selection + .las emission
                       (pipeline.reporter, pipeline.mapper)
+  * DAZZ tool chain — lasort/lacat/lamerge/lacheck/dbsplit/dbshow/fasta2*
+                      (cli), lashow with exact traces and gap consolidation
+                      (io.display, ops.trace, ops.gap), the QV codec (io.qv)
+  * cluster plans   — HPC.damapper plans (parallel.plan) and their runner
+                      over torch.distributed ranks (parallel.launch)
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``), where every kernel runs its plain PyTorch version.

@@ -5,6 +5,7 @@ the JAX package's tools/, and with no CUDA card its entry points raise
 unless the caller asks for the CPU."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -216,3 +217,52 @@ def test_probe_tool_without_card_exits_nonzero(monkeypatch, tmp_path, tool,
     assert tool.main(["--out", str(out)]) != 0
     assert "no CUDA device" in capsys.readouterr().err
     assert not out.exists()
+
+
+def test_tool_chain_runs_where_jax_cannot_import(tmp_path):
+    """The port's CLI maps, sorts, merges, checks, shows and plans in
+    processes where importing jax or damapper_tpu fails."""
+    from damapper_tpu_torch.io import db as dbio
+    from damapper_tpu_torch.io import fasta
+    from damapper_tpu_torch.utils.sim import sim_genome, sim_read
+    import numpy as np
+
+    block = tmp_path / "block"
+    for pkg in ("jax", "damapper_tpu"):
+        (block / pkg).mkdir(parents=True)
+        (block / pkg / "__init__.py").write_text(
+            f"raise ImportError('{pkg} is not installed here')\n")
+    data = tmp_path / "data"
+    data.mkdir()
+    rng = np.random.default_rng(4)
+    genome = sim_genome(rng, 20_000)
+    reads = [sim_read(rng, genome, min_len=1500, max_len=3000)[0]
+             for _ in range(6)]
+    dbio.create_dam(str(data / "ref.dam"), [fasta.FastaEntry("g", genome)])
+    dbio.create_db(str(data / "reads.db"),
+                   [fasta.FastaEntry(f"r{i}", r) for i, r in enumerate(reads)],
+                   bsize=6_000)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=os.pathsep.join([str(block), str(REPO)]),
+               DAMAPPER_DEVICE="cpu", OMP_NUM_THREADS="1")
+    probe = subprocess.run([sys.executable, "-c", "import jax"], cwd=data,
+                           env=env, capture_output=True, text=True)
+    assert probe.returncode != 0 and "not installed here" in probe.stderr
+    # the plan first: it refuses to plan over blocks already mapped
+    steps = [["plan", "-fjson", "ref", "reads"],
+             ["damapper", "-k14", "ref", "reads.@"],
+             ["lasort", "reads.@.ref"],
+             ["lamerge", "all", "reads.@.ref.S"],
+             ["lacheck", "-vS", "all"],
+             ["lashow", "-caG", "ref", "reads", "all.las"],
+             ["dbshow", "reads", "1"]]
+    outs = []
+    for argv in steps:
+        r = subprocess.run([sys.executable, "-m", "damapper_tpu_torch.cli",
+                            *argv], cwd=data, env=env, capture_output=True,
+                           text=True, timeout=300)
+        assert r.returncode == 0, f"{argv}: {r.stdout}{r.stderr}"
+        outs.append(r.stdout)
+    assert "damapper_tpu_torch.cli lamerge" in outs[0]
+    assert " diffs\n" in outs[5]
+    assert outs[6].startswith(">")
