@@ -71,11 +71,26 @@ ends with {"ok": false, "phase": <the phase>, "error": <the exception>}:
                 merged .las must equal a direct run of the whole DB on the
                 card record for record, pass lacheck -vS, and give the same
                 lashow -ca bytes; wall times and reads/s of both printed.
+  8. mesh     — the sharded mesh path (parallel.mesh) on virtual shards of
+                the card: (a) parallel.mesh.dryrun(8) on eight shards of
+                cuda:0 as a (dp=4, ref=2) mesh, the 1 Mb repeat-family genome
+                and 100 reads mapped single-device and on the mesh, .las
+                record-identical; (b) phase 4b's 140 Mb dataset on a (dp=2,
+                ref=2) mesh of cuda:0 (sharded reads and reference indexes,
+                two sharded matches a block, dp-sharded wave lanes), .las
+                record-identical to phase 4b's direct run, then the sharded
+                match of both frames timed beside the pair match on the same
+                indexes (their hits equal); (c) phase 7's blocks run as a
+                plan with launch --global-index over two gloo ranks sharing
+                the card (the reference index sharded over the ranks), the
+                merged .las equal to phase 7's direct run; each rank's
+                mapping wall and cross-rank bytes a job printed.
   6. kernels  — one JSON line with each ported kernel's launches on its
                 path's run (a wave kernel's mapping run; the probe tools'
                 run), its agreement with the plain version, and its time
                 beside its bound and the plain version's time; launches_plan
-                is its count over phase 7's ranks.
+                is its count over phase 7's ranks, launches_mesh over phase
+                8b's mesh run, launches_coop over phase 8c's ranks.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -1011,7 +1026,7 @@ def phase_genome(torch, work, seed, glen, nreads):
     print(f"index programs: max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} bytes")
     print(f"genome phase {time.time() - t_phase:.1f}s")
-    return progs
+    return progs, keys["device index"]
 
 
 def phase_las(work):
@@ -1175,7 +1190,149 @@ def phase_plan(torch, src, work, nreads, name):
           f"{direct_s:.2f}s: reads/s {nreads / direct_s:.1f}")
     print(f"plan launches {launches}")
     print(f"plan phase {time.time() - t_phase:.1f}s")
+    return launches, (dtspace, [r.key() for r in drecs])
+
+
+def _sharded_match_ms(torch, work, mesh):
+    """Phase 4b's block matched by the sharded match (both frames) and by
+    the pair match on the same indexes, each timed (median of 3
+    synchronized calls); their hits must be equal.  Returns {step: ms}."""
+    from damapper_tpu_torch.ops import device_index as dix
+    from damapper_tpu_torch.pipeline import mapper
+    reads = mapper.read_block(str(work / "reads.db"), [], 20)
+    ref = mapper.read_block(str(work / "ref.1.dam"), [], 20)
+    dev = torch.device("cuda")
+    rseq = dix.device_upload_seq(reads, dev)
+    bf = dix.device_sort_kmers(reads, 20, seq_dev=rseq)
+    bc = dix.device_sort_kmers(reads, 20, comp=True, seq_dev=rseq)
+    del rseq
+    aidx = dix.device_sort_kmers(ref, 20, device=dev)
+    mem = mapper._physical_memory()
+    db_bytes = reads.sizeof() + ref.sizeof()
+    ms = {}
+    ms["shard_index"], (sf, sc, sa) = _sync_ms(torch, lambda: (
+        dix.shard_index(bf, mesh, "dp"), dix.shard_index(bc, mesh, "dp"),
+        dix.shard_index(aidx, mesh, "ref")))
+    ms["match_sharded_fwd"], hf = _sync_ms(
+        torch, lambda: dix.device_match_seeds_sharded(sf, sa, mesh, mem,
+                                                      db_bytes))
+    ms["match_sharded_comp"], hc = _sync_ms(
+        torch, lambda: dix.device_match_seeds_sharded(
+            sc, sa, mesh, mem, db_bytes, comp_frame=True))
+    ms["match_pair"], (pf, pc) = _sync_ms(
+        torch, lambda: dix.device_match_seeds_pair(bf, bc, aidx, mem,
+                                                   db_bytes))
+    check(all(np.array_equal(getattr(x, f), getattr(y, f))
+              for x, y in ((hf, pf), (hc, pc))
+              for f in ("aread", "bread", "apos", "diag")),
+          "the sharded match's hits differ from the pair match's")
+    print(f"sharded match at {len(ref.seq):,} reference bases on a "
+          f"{mesh.shape} mesh: {len(hf):,} + {len(hc):,} hits (equal to the "
+          f"pair match's); ms per call: "
+          + "  ".join(f"{k}={v:.2f}" for k, v in ms.items()))
+    return ms
+
+
+def _coop_plan(torch, src, work, direct, nreads, name):
+    """Phase 7's blocks and plan, run with launch --global-index over two
+    ranks sharing the card; the merged .las must equal phase 7's direct
+    run.  Returns the ranks' summed launches."""
+    from damapper_tpu_torch import cli
+    from damapper_tpu_torch.io import las as lasio
+    from damapper_tpu_torch.parallel import launch
+    for f in src.iterdir():
+        if f.is_file() and (f.name.startswith(".")
+                            or f.suffix in (".db", ".dam")):
+            shutil.copy2(f, work / f.name)
+    plan = json.loads((src / "plan.json").read_text())
+    res = launch.run_plan_multihost(json.dumps(plan), nprocs=2,
+                                    workdir=str(work), global_index=True)
+    for r, log in enumerate(res["logs"]):
+        print(f"--- rank {r} log ---\n{log.rstrip()}")
+    check(res["rc"] == 0, f"the --global-index plan run exited {res['rc']}")
+    launches, rank_s, gloo = {}, [], []
+    for r, log in enumerate(res["logs"]):
+        check(_rank_lines(log, r, "exit") == ["rc=0"],
+              f"rank {r} did not exit 0")
+        mapped = _rank_lines(log, r, "blocks")
+        check(len(mapped) == len(plan["jobs"]) + 1 and all(
+            ln.endswith(f" on cuda:0 ({name}) (global mesh)")
+            for ln in mapped[:-1]),
+            f"rank {r} did not run every job on the card's global mesh")
+        rank_s.append(float(mapped[-1].split(" in ")[1].rstrip("s")))
+        got = json.loads(_rank_lines(log, r, "launches")[0])
+        check(got["wave_lanes"] > 0, f"rank {r} launched no wave_lanes")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        gloo.append([json.loads(x) for x in _rank_lines(log, r, "gloo")])
+        check(len(gloo[-1]) == len(plan["jobs"])
+              and all(g["bytes"] > 0 for g in gloo[-1]),
+              f"rank {r}'s jobs moved no bytes across the ranks")
+    merged = work / "reads.ref.las"
+    check(cli.main(["lacheck", "-vS", str(merged)]) == 0,
+          "lacheck -vS fails on the merged .las")
+    recs, tspace = lasio.read_las(str(merged))
+    same = (tspace, [r.key() for r in recs]) == direct
+    print(f"merged .las: {len(recs)} records, identical to phase 7's "
+          f"direct run's {len(direct[1])}: {same}")
+    check(same and len(recs) > 0, "the --global-index .las differs from "
+          "the direct run's")
+    per_job = [g["bytes"] for g in gloo[0]]
+    print(f"coop plan wall {res['seconds']:.2f}s (rank mapping walls "
+          + ", ".join(f"{s:.2f}s" for s in rank_s)
+          + f"): reads/s {nreads / res['seconds']:.1f}; cross-rank bytes "
+          f"a job (rank 0; one reference block a job) {per_job}, "
+          f"collectives {[g['collectives'] for g in gloo[0]]}")
+    print(f"coop launches {launches}")
     return launches
+
+
+def phase_mesh(torch, tmp, seed, nreads, name, genome_keys, direct):
+    """The sharded mesh path on virtual shards of the card."""
+    from damapper_tpu_torch.parallel import mesh as pmesh
+    t_phase = time.time()
+    phase("8a mesh: dryrun(8) on eight virtual shards of cuda:0")
+    t0 = time.time()
+    out = pmesh.dryrun_multichip(8)
+    for nm in ("single", "mesh"):
+        st = out[nm]
+        print(f"--- dryrun {nm} (mesh {st['mesh']}): stage seconds "
+              + "  ".join(f"{k}={v:.2f}" for k, v in st["times"].items())
+              + f"; lanes {st['n_lanes']}, launches "
+              f"{st['kernel_launches']}")
+    check(out["mesh"]["mesh"] == {"dp": 4, "ref": 2},
+          f"the dryrun's mesh was {out['mesh']['mesh']}")
+    check(out["mesh"]["kernel_launches"]["wave_lanes"] > 0,
+          "the dryrun's mesh run launched no wave_lanes")
+    print(f"dryrun(8): {out['records']} records, identical; "
+          f"{time.time() - t0:.1f}s")
+
+    phase("8b mesh: phase 4b's genome on a (dp=2, ref=2) mesh of cuda:0")
+    work = tmp / "genome"
+    mesh = pmesh.make_mesh(4, ref_shards=2, devices=["cuda:0"] * 4)
+    check(mesh.shape == {"dp": 2, "ref": 2}, f"mesh {mesh.shape}")
+    launches, keys, st = _map_once(torch, work, seed, nreads, "classic",
+                                   dict(mesh=mesh), "wave_lanes",
+                                   tag="mesh dp2 ref2")
+    check(st["mesh"] == mesh.shape and st["ref_index_builds"] == 1
+          and st["ref_index_cache_hits"] == 0,
+          "the mesh run did not build its sharded index")
+    same = keys == genome_keys
+    print(f"mesh run: .las records identical to phase 4b's direct run "
+          f"({len(genome_keys)} records): {same}")
+    check(same, "the mesh run's .las records differ from phase 4b's")
+    torch.cuda.reset_peak_memory_stats()
+    _sharded_match_ms(torch, work, mesh)
+    print(f"sharded match timing: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} bytes")
+
+    phase("8c mesh: config-1 plan with --global-index over two ranks on "
+          "one card")
+    (tmp / "coop").mkdir()
+    coop = _coop_plan(torch, tmp / "plan", tmp / "coop", direct, nreads,
+                      name)
+    print(f"mesh phase {time.time() - t_phase:.1f}s")
+    return launches, coop
 
 
 def run(torch, args) -> None:
@@ -1200,11 +1357,13 @@ def run(torch, args) -> None:
                                  args.nreads)
         launches.update(probe_launches)
         (tmp / "genome").mkdir()
-        phase_genome(torch, tmp / "genome", args.seed, GENOME_LEN,
-                     args.nreads)
+        _, genome_keys = phase_genome(torch, tmp / "genome", args.seed,
+                                          GENOME_LEN, args.nreads)
         phase_las(tmp / "las")
-        plan_launches = phase_plan(torch, tmp / "map", tmp / "plan",
-                                   args.nreads, name)
+        plan_launches, direct = phase_plan(
+            torch, tmp / "map", tmp / "plan", args.nreads, name)
+        mesh_launches, coop_launches = phase_mesh(
+            torch, tmp, args.seed, args.nreads, name, genome_keys, direct)
     phase("6 kernels")
     print(f"total {time.time() - t_start:.1f}s")
     src = "damapper_tpu_torch/csrc/"
@@ -1220,6 +1379,8 @@ def run(torch, args) -> None:
     kernels = [dict(name=nm, route="cuda", source=src + f, replaces=tpu,
                     launches=launches[nm],
                     launches_plan=plan_launches.get(nm, 0),
+                    launches_mesh=mesh_launches.get(nm, 0),
+                    launches_coop=coop_launches.get(nm, 0),
                     match=kern[nm]["max_abs_err"] == 0, **kern[nm],
                     library_ms=None)
                for nm, f, tpu in rows]

@@ -12,9 +12,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from .ops.device_index import DeviceKmerIndex, join_key
 from .ops.spec import AlignSpec
 from .ops.wave_engine import trace_offsets
 from .ops.wave_persistent import persistent_windows
+from .parallel.mesh import AXES, Mesh
 
 
 def align_spec_from_numpy(fields) -> AlignSpec:
@@ -70,3 +72,37 @@ def lanes_from_numpy(seeds, seqmem, device, trace_space=100, L=None,
             out["abase"], out["bbase"], out["mida"], out["k0"], len(seqmem),
             len(seqmem), L, reverse)
     return out
+
+
+def device_index_from_numpy(hi, lo, pos, n, boffs, kmer, rlens, device,
+                            nreads=None, max_rlen=None) -> DeviceKmerIndex:
+    """The port's DeviceKmerIndex of another index's arrays as numpy: the
+    uint32 key planes hi/lo (one int64 key here, ops.device_index
+    .join_key), int32 pos, boffs (padding: len(pos) - 1) and rlens
+    (padding: 0), the live count n and k.  nreads and max_rlen default to
+    the real rows of the read table."""
+    cap = len(pos)
+    boffs = np.asarray(boffs, np.int32)
+    rlens = np.asarray(rlens, np.int32)
+    if nreads is None:
+        nreads = int((boffs < cap - 1).sum())
+    if max_rlen is None:
+        max_rlen = int(rlens[:nreads].max()) if nreads else 0
+
+    def up(a, dt):
+        return torch.from_numpy(np.array(a, dt)).to(device)
+
+    key = join_key(up(hi, np.int64), up(lo, np.int64))
+    return DeviceKmerIndex(key, up(pos, np.int32), int(n), up(boffs, np.int32),
+                           int(kmer), up(rlens, np.int32), nreads, max_rlen)
+
+
+def mesh_like(shape, devices) -> Mesh:
+    """The port's mesh of another mesh's shape ({"dp": a, "ref": b}, or a
+    tuple) over ``devices`` in order, dp-major: the layout make_mesh gives
+    one process."""
+    dims = tuple(shape.values()) if isinstance(shape, dict) else tuple(shape)
+    devs = list(devices)[:int(np.prod(dims))]
+    arr = np.empty(len(devs), dtype=object)
+    arr[:] = devs
+    return Mesh(arr.reshape(dims), AXES[:len(dims)])

@@ -1,10 +1,11 @@
 """Device-resident k-mer index build, packed sequence upload and seed
 matching, as PyTorch ops on the card (or on CPU tensors).
 
-The counterpart of damapper_tpu/ops/device_index.py:59-1060 (the
-single-device path), producing the same arrays and the same hits as that
-module and as the host path (ops.kmers.sort_kmers / ops.seeds.match_seeds,
-reference map.c:447-822, 825-1002, 2889-3208):
+The counterpart of damapper_tpu/ops/device_index.py (the single-device
+path, :59-1060, and the sharded match over a (dp, ref) mesh, :1062-1298),
+producing the same arrays and the same hits as that module and as the host
+path (ops.kmers.sort_kmers / ops.seeds.match_seeds, reference
+map.c:447-822, 825-1002, 2889-3208):
 
  * Keys.  The JAX package carries the 2k-bit big-endian code as two uint32
    planes (its TPU runs with x64 off).  Here a key is ONE int64: the
@@ -34,23 +35,25 @@ reference map.c:447-822, 825-1002, 2889-3208):
    emission cumsum, the -M governor's running sum) and the -M group cost
    is JAX's float32 product clamped at float32(0x7FFFFF00).
 
-Every function takes and returns tensors on one device: the index stays
-there from the upload to the emitted hits, and the host pulls only the
-stacked hit buffer and the two scalars (total, limit) that the JAX code
-pulls.  A CUDA request without a card raises (ops.wave_engine
-.resolve_device); nothing falls back to the host index.
+Every single-device function takes and returns tensors on one device:
+the index stays there from the upload to the emitted hits, and the host
+pulls only the stacked hit buffer and the two scalars (total, limit) that
+the JAX code pulls.  The sharded match runs each mesh position's steps on
+that position's device (parallel.mesh).  A CUDA request without a card
+raises (ops.wave_engine.resolve_device); nothing falls back to the host
+index.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from .kmers import KmerIndex
-from .seeds import MAXGRAM, SeedHits
+from .seeds import MAXGRAM, SeedHits, match_limit
 from .wave_engine import resolve_device
 
 _I32 = torch.int32
@@ -680,11 +683,16 @@ def _pos_to_read_rpos(p, boffs, kmer: int):
 def _count_epilogue(key, an: int, b_lo, b_hi, use_gram: bool):
     """Per-row hit counts cb, per-group cost ct (JAX's float32 product,
     clamped at float32(0x7FFFFF00)) and the -M histogram of group costs."""
+    return _group_costs(key, an, b_hi - b_lo, use_gram)
+
+
+def _group_costs(key, an: int, counts, use_gram: bool):
+    """_count_epilogue of per-row b counts (rows >= an count 0)."""
     nq = key.shape[0]
     dev = key.device
     idx = torch.arange(nq, dtype=_I32, device=dev)
     live = idx < an
-    cb = torch.where(live, b_hi - b_lo, 0).to(_I32)
+    cb = torch.where(live, counts, 0).to(_I32)
     gl, gr = _self_ranges(key)
     ct = torch.clamp_max((gr - gl).to(torch.float32) * cb.to(torch.float32),
                          float(0x7FFFFF00)).to(_I32)
@@ -773,7 +781,8 @@ def _emit_rows(a_pos, aboffs, b_pos, bboffs, b_lo, cum, ncap: int,
                akmer: int, bkmer: int):
     """Emission index algebra: for output slot t, the a row whose
     inclusive cumsum first exceeds t and the b row at its offset, with
-    (read, rpos) of both sides; pad marks t >= total."""
+    (read, rpos) of both sides; pad marks t >= total.  Returns (pad, ar,
+    ap, br, bp, b_row)."""
     dev = cum.device
     t = torch.arange(ncap, dtype=_I32, device=dev)
     total = cum[-1]
@@ -786,7 +795,7 @@ def _emit_rows(a_pos, aboffs, b_pos, bboffs, b_lo, cum, ncap: int,
     br, bp = _pos_to_read_rpos(
         b_pos[torch.clamp_max(b_row, b_pos.shape[0] - 1).to(_I64)], bboffs,
         bkmer)
-    return t >= total, ar, ap, br, bp
+    return t >= total, ar, ap, br, bp, b_row
 
 
 def _bits(v: int) -> int:
@@ -798,8 +807,8 @@ def _match_emit(a_pos, aboffs, b_pos, bboffs, b_lo, cum, ncap: int,
     """Pass 2: the hits in an ncap-padded int32[4, ncap] buffer (aread,
     bread, apos, diag), sorted by (aread, bread, apos), stable.  widths:
     (a reads, b reads, a's longest read) bound the sort fields."""
-    pad, ar, ap, br, bp = _emit_rows(a_pos, aboffs, b_pos, bboffs, b_lo,
-                                     cum, ncap, akmer, bkmer)
+    pad, ar, ap, br, bp, _ = _emit_rows(a_pos, aboffs, b_pos, bboffs,
+                                        b_lo, cum, ncap, akmer, bkmer)
     na, nb, alen = widths
     dg = torch.where(pad, 0, ap - bp)
     ap = torch.where(pad, 0, ap)
@@ -818,8 +827,8 @@ def _match_emit_comp(a_pos, aboffs, a_rlens, b_pos, bboffs, b_rlens, b_lo,
     rlen+k-2-ap, bp -> clen+k-2-bp) and sorted by (aread, bread, apos,
     comp bpos), the reference's tie order.  widths: (a reads, b reads,
     a's longest read, b's longest read)."""
-    pad, ar, ap_rc, br, bp = _emit_rows(a_pos, aboffs, b_pos, bboffs, b_lo,
-                                        cum, ncap, akmer, bkmer)
+    pad, ar, ap_rc, br, bp, _ = _emit_rows(a_pos, aboffs, b_pos, bboffs,
+                                           b_lo, cum, ncap, akmer, bkmer)
     na, nb, alen, blen = widths
     ap = torch.where(pad, 0, a_rlens[ar.to(_I64)] + (akmer - 2) - ap_rc)
     bpc = torch.where(pad, 0, b_rlens[br.to(_I64)] + (bkmer - 2) - bp)
@@ -898,3 +907,214 @@ def device_match_seeds_pair(reads_fwd: DeviceKmerIndex,
     return (_finish_match(reads_fwd, ref_idx, *f, mem_limit, db_bytes,
                           False),
             _finish_match(reads_rc, ref_idx, *c, mem_limit, db_bytes, True))
+
+
+# ---------------------------------------------------------------------------
+# sharded matching over a (dp, ref) mesh
+# ---------------------------------------------------------------------------
+#
+# The counterpart of damapper_tpu/ops/device_index.py:1062-1298: the reads
+# index sharded over "dp", each reference block's index over "ref"
+# (parallel.mesh).  Every (dp, ref) position counts its a slice against its
+# b slice; the ref shards' counts are summed (the JAX package's psum over
+# "ref"; across ranks an all-reduce), the -M histogram and the selection run
+# on those global counts exactly as the single-device path runs them, each
+# position emits its own hits with two tie planes, and one stable sort of
+# every position's buffer restores the reference's hit order.
+
+
+@dataclass
+class ShardedKmerIndex(DeviceKmerIndex):
+    """A DeviceKmerIndex split contiguously over one mesh axis.
+
+    key/pos (and the rest of DeviceKmerIndex) stay the whole index on its
+    device: the group math of the a side runs on all of it, as the JAX
+    package's global arrays do.  ``parts`` maps each position this rank
+    owns to its shard's (key, pos) on the position's device (views where
+    the device is the index's own); ``reps`` maps each of those devices to
+    its (boffs, rlens), which every position replicates."""
+
+    mesh: object = None
+    axis: str = "dp"
+    parts: dict = field(default_factory=dict)
+    reps: dict = field(default_factory=dict)
+
+
+def _mesh_is_multiprocess(mesh) -> bool:
+    """True when the mesh spans more than one rank."""
+    return mesh.is_multiprocess()
+
+
+def shard_index(idx: DeviceKmerIndex, mesh, axis: str) -> ShardedKmerIndex:
+    """The index split contiguously over a mesh axis: ``key`` and ``pos``
+    in mesh.shape[axis] equal slices, ``boffs`` and ``rlens`` replicated;
+    each position this rank owns gets its slice on its device.  Across
+    ranks every rank holds the whole index (the host stages are
+    replicated) and keeps only its own positions' shards."""
+    size = mesh.shape[axis]
+    cap = idx.key.shape[0]
+    if cap % size:
+        raise ValueError(f"an index of {cap} entries does not split into "
+                         f"{size} {axis!r} shards")
+    per = cap // size
+    ax = mesh.axis_names.index(axis)
+    parts, placed, reps = {}, {}, {}
+    for ix in mesh.local_positions():
+        dev = mesh.devices[ix]
+        s = ix[ax]
+        if (s, dev) not in placed:
+            sl = slice(s * per, (s + 1) * per)
+            placed[(s, dev)] = (idx.key[sl].to(dev), idx.pos[sl].to(dev))
+        parts[ix] = placed[(s, dev)]
+        if dev not in reps:
+            reps[dev] = (idx.boffs.to(dev), idx.rlens.to(dev))
+    return ShardedKmerIndex(idx.key, idx.pos, idx.n, idx.boffs, idx.kmer,
+                            idx.rlens, idx.nreads, idx.max_rlen, mesh, axis,
+                            parts, reps)
+
+
+def _local_ranges(akey, bkey, bn: int):
+    """A position's b-ranges: (b_lo, count) int32 of its a slice in its b
+    slice's first bn (live) entries.  The search itself stops at bn: the
+    trailing shards' pads are sentinel keys, which real all-T 32-mers share
+    (the JAX package searches the whole slice and clamps to bn, with the
+    same result)."""
+    b = bkey[:bn]
+    b_lo = _searchsorted2(b, akey, "left")
+    return b_lo, _searchsorted2(b, akey, "right") - b_lo
+
+
+def _emit_shard(j: int, nref: int, sel, aidx, bidx, ix, b_lo, cb_l,
+                ncap: int, comp_frame: bool):
+    """One position's hits: int32[6, ncap] planes (aread, bread, apos,
+    tie1, tie2, diag), pad rows (aread = tie1 = tie2 = INT32_MAX) past the
+    position's own total.  The tie planes order hits of one a row by b row
+    across the shards: (ref shard, local b row), both reversed in the
+    complement frame, whose reference order is the descending forward b
+    row (damapper_tpu's emit_local)."""
+    dev = b_lo.device
+    a_pos = aidx.parts[ix][1]
+    b_pos = bidx.parts[ix][1]
+    aboffs, arlens = aidx.reps[dev]
+    bboffs, brlens = bidx.reps[dev]
+    take = torch.where(sel, cb_l, 0)
+    cum = _wrap32(torch.cumsum(take, 0, dtype=_I64))
+    pad, ar, ap, br, bp, b_row = _emit_rows(a_pos, aboffs, b_pos, bboffs,
+                                            b_lo, cum, ncap, aidx.kmer,
+                                            bidx.kmer)
+    if comp_frame:
+        ap = arlens[ar.to(_I64)] + (aidx.kmer - 2) - ap
+        bp = brlens[br.to(_I64)] + (bidx.kmer - 2) - bp
+        tie1 = nref - 1 - j
+        tie2 = _IMAX - b_row
+    else:
+        tie1 = j
+        tie2 = b_row
+    dg = torch.where(pad, 0, ap - bp)
+    ar = torch.where(pad, _IMAX, ar)
+    ap = torch.where(pad, 0, ap)
+    br = torch.where(pad, 0, br)
+    t1 = torch.where(pad, _IMAX, tie1)
+    t2 = torch.where(pad, _IMAX, tie2)
+    return torch.stack([x.to(_I32) for x in (ar, br, ap, t1, t2, dg)])
+
+
+def _sort_hits(bufs, widths, per_b: int, comp_frame: bool):
+    """The stable (aread, bread, apos, tie1, tie2) sort of the positions'
+    buffers, concatenated in the given order, as int32[4, N] (aread,
+    bread, apos, diag).  The two tie planes sort as one field, tie1 *
+    per_b + the local b row (per_b - 1 - it in the complement frame, where
+    tie2 is INT32_MAX - b row): the same order in fewer bits.  widths:
+    (a reads, b reads, a's longest read, the b index's length)."""
+    ar, br, ap, t1, t2, dg = torch.cat(bufs, 1).unbind(0)
+    na, nb, alen, cap_b = widths
+    pad = ar == _IMAX
+    local = (per_b - 1 - (_IMAX - t2.to(_I64))) if comp_frame else t2
+    tie = torch.where(pad, 0, t1.to(_I64) * per_b + local)
+    o = _lex_order([torch.where(pad, na, ar), br, ap, tie],
+                   [_bits(na), _bits(nb), _bits(alen), _bits(cap_b)])
+    return torch.stack([ar[o], br[o], ap[o], dg[o]])
+
+
+def device_match_seeds_sharded(aidx: ShardedKmerIndex,
+                               bidx: ShardedKmerIndex, mesh,
+                               mem_limit: int = 0, db_bytes: int = 0,
+                               comp_frame: bool = False) -> SeedHits:
+    """Sharded Match_Filter: aidx (the reads) sharded over "dp", bidx (a
+    reference block) over "ref"; host SeedHits equal to
+    device_match_seeds's.  The -M limit is the host match_limit of the
+    histogram of the summed counts, as the JAX package's sharded path takes
+    it: a limit <= 1 raises MemoryError, and a budget below zero is not
+    clamped (the single-device path clamps it, ROADMAP Queue 3).
+
+    Across ranks, every value the host reads (the histogram, the selection
+    and total, the per-position totals, the sorted hits) is the same on
+    every rank: the counts are all-reduced, the per-position totals and the
+    emission buffers all-gathered."""
+    if aidx.n == 0 or bidx.n == 0:
+        return _empty_hits()
+    from ..parallel import mesh as pmesh
+    multi = _mesh_is_multiprocess(mesh)
+    ndp, nref = mesh.shape["dp"], mesh.shape["ref"]
+    home = aidx.key.device
+    n = aidx.key.shape[0]
+    per_a = n // ndp
+    cap_b = bidx.key.shape[0]
+    per_b = cap_b // nref
+    # live entries per b shard (pads live in the trailing shards)
+    bn_l = np.clip(bidx.n - per_b * np.arange(nref), 0, per_b)
+    local = mesh.local_positions()
+
+    # count: each position's b-ranges; the ref shards' counts summed
+    ranges = {}
+    cb_g = torch.zeros(n, dtype=_I32, device=home)
+    for ix in local:
+        i, j = ix
+        ranges[ix] = _local_ranges(aidx.parts[ix][0], bidx.parts[ix][0],
+                                   int(bn_l[j]))
+        cb_g[i * per_a:(i + 1) * per_a] += ranges[ix][1].to(home)
+    if multi:
+        cb_g = pmesh.all_reduce_sum(cb_g)
+
+    # the group math on the summed counts, as the single-device path's
+    cb, ct, gram = _group_costs(aidx.key, aidx.n, cb_g, mem_limit > 0)
+    if mem_limit > 0:
+        limit = match_limit(gram.cpu().numpy(), mem_limit, db_bytes, aidx.n,
+                            bidx.n)
+    else:
+        limit = _IMAX
+    sel = (cb > 0) & (ct < min(limit, _IMAX))
+    total = int(_wrap32(torch.where(sel, cb, 0).sum(dtype=_I64)))
+    if total == 0:
+        return _empty_hits()
+
+    # each position's own total bounds the emission capacity (one size for
+    # every position)
+    sels, tots = {}, []
+    for ix in local:
+        i, _ = ix
+        s = sel[i * per_a:(i + 1) * per_a].to(ranges[ix][1].device)
+        sels[ix] = s
+        tots.append(torch.where(s, ranges[ix][1], 0).sum(dtype=_I64)
+                    .to(home))
+    tot = torch.stack(tots)
+    if multi:
+        tot = pmesh.all_gather(tot)
+    ncap = _bucket(max(1, int(tot.max())))
+
+    bufs = {ix: _emit_shard(ix[1], nref, sels[ix], aidx, bidx, ix,
+                            *ranges[ix], ncap, comp_frame).to(home)
+            for ix in local}
+    if multi:
+        got = pmesh.all_gather(torch.stack([bufs[ix] for ix in local]))
+        bufs = {}
+        for r in range(got.shape[0]):
+            own = [ix for ix in np.ndindex(mesh.devices.shape)
+                   if mesh.ranks[ix] == r]
+            bufs.update(zip(own, got[r].unbind(0)))
+    order = sorted(bufs)           # position order: dp-major, then ref
+    h = _sort_hits([bufs[ix] for ix in order],
+                   (aidx.nreads, bidx.nreads, aidx.max_rlen, cap_b), per_b,
+                   comp_frame)
+    h = h[:, :total].contiguous().cpu().numpy()
+    return SeedHits(h[0], h[1], h[2], h[3])

@@ -24,6 +24,7 @@ twin, wave_pallas.py:2369-2416).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from dataclasses import dataclass
@@ -87,13 +88,32 @@ class WaveEngine:
     from its longest a-read.
     host_min: rounds with fewer lanes run on the host oracle.  persistent,
     packops, lanepack: the wave mode (None: DAMAPPER_WAVE_PERSISTENT,
-    DAMAPPER_WAVE_PACKOPS, DAMAPPER_WAVE_LANEPACK)."""
+    DAMAPPER_WAVE_PACKOPS, DAMAPPER_WAVE_LANEPACK).  mesh: a
+    parallel.mesh.Mesh of one process whose "dp" axis shards every
+    launch's lanes (padded with filler lanes to a multiple of the dp size):
+    each shard's kernel runs on its dp row's device, every shard is
+    launched before any pull, the results come back in lane order, and a
+    launch counts once per shard."""
 
     def __init__(self, spec: AlignSpec, band_cap: int | None = None,
                  pool_cap: int = 2048, device=None, host_min: int = 16,
-                 persistent=None, packops=None, lanepack=None):
+                 persistent=None, packops=None, lanepack=None, mesh=None):
         self.spec = spec
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self._dp = [self.device]
+        else:
+            if mesh.is_multiprocess():
+                raise ValueError("the wave engine shards lanes within one "
+                                 "process; a mesh across ranks runs the "
+                                 "wave unsharded on every rank")
+            self._dp = mesh.dp_devices()
+            if any(d.type != self.device.type for d in self._dp):
+                raise ValueError(f"the mesh's dp devices {self._dp} are not "
+                                 f"all of the engine's device type "
+                                 f"{self.device.type}")
+        self._mirrors = {}      # dp device -> sequence memories there
         self.persistent = _switch(persistent, "DAMAPPER_WAVE_PERSISTENT")
         packops = _switch(packops, "DAMAPPER_WAVE_PACKOPS")
         lanepack = _switch(lanepack, "DAMAPPER_WAVE_LANEPACK")
@@ -191,54 +211,43 @@ class WaveEngine:
                 (abase, bbase, mida, k0, aoffp, boffp)]
         if order is not None:
             args = [x[order] for x in args]
+        ndp = len(self._dp)
+        npad = -(-n // ndp) * ndp
+        if npad > n:
+            # a dp-sharded launch takes a multiple of the dp size: filler
+            # lanes anchored on the memory's leading sentinel stop after one
+            # wave and are dropped (wave_jax.py's degenerate filler seed)
+            args = [np.concatenate([x, np.zeros(npad - n, np.int32)])
+                    for x in args]
         reverse = which == "rev"
         if persistent:
             args += [w.numpy() for w in persistent_windows(
                 *(torch.from_numpy(x) for x in args[:4]), Adev.shape[0],
                 Bdev.shape[0], self._L, reverse)]
-        # the lane inputs go up in one copy: the packed layout's (n, 8)
-        # records, else the rows of one array
-        kw = {}
-        if self.layout == "packed":
-            rec = np.zeros((n, NREC_IN), np.int32)
-            rec[:, :len(args)] = np.stack(args, 1)
-            kw["record"] = torch.from_numpy(rec).to(self.device)
-            ins = list(kw["record"].unbind(1))
-        else:
-            ins = list(torch.from_numpy(np.stack(args)).to(self.device))
+        # kernel time on the current device's stream (with shards on other
+        # cards, theirs is not in it)
         timed = self.device.type == "cuda"
         if timed:
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
             ev0.record()
-        # launches are counted on the wrappers themselves (_wc, _wp), which
-        # a test may stand in for with its own function
-        consts = dict(zip(("ts", "pave", "msc", "dsc"), self._consts))
-        cnt = "launches_" + self.layout
-        if persistent:
-            real, names = _wp.wave_lanes_persistent, _wp.KERNEL_NAMES
-            before = getattr(real, cnt)
-            out = wave_lanes_persistent(
-                *ins[:6], Adev, Bdev, **consts, W=self.W, P=P, L=self._L,
-                reverse=reverse, layout=self.layout, awst=ins[6],
-                bwst=ins[7], **kw)
-        else:
-            real, names = _wc.wave_lanes, _wc.KERNEL_NAMES
-            before = getattr(real, cnt)
-            out = wave_lanes(*ins[:6], Adev, Bdev, **consts, W=self.W, P=P,
-                             reverse=reverse, layout=self.layout, **kw)
-        self.launches[names[self.layout]] += getattr(real, cnt) - before
+        # every shard's kernel is launched before any result is pulled
+        per = npad // ndp
+        outs = [self._launch_shard([x[s * per:(s + 1) * per] for x in args],
+                                   dev, Adev, Bdev, P, reverse, persistent)
+                for s, dev in enumerate(self._dp)]
         if timed:
             ev1.record()
-        # one pull per field group (the packed layout's whole output record
-        # in one copy); the pool only up to the longest chain
-        if "record" in out:
-            scal = out["record"].cpu().numpy().T[:len(OUT_FIELDS)]
-        else:
-            scal = torch.stack([out[f].to(torch.int32) for f in OUT_FIELDS]
-                               ).cpu().numpy()
+        # one pull per field group and shard (the packed layout's whole
+        # output record in one copy); the pool only up to the longest chain
+        scal = np.concatenate([
+            out["record"].cpu().numpy().T[:len(OUT_FIELDS)]
+            if "record" in out else
+            torch.stack([out[f].to(torch.int32) for f in OUT_FIELDS]
+                        ).cpu().numpy() for out in outs], 1)[:, :n]
         top = int(min(P, max(2, int(scal[OUT_FIELDS.index("avail")].max()))))
-        pool = out["pool"][:, :top].cpu().numpy()
+        pool = np.concatenate([out["pool"][:, :top].cpu().numpy()
+                               for out in outs])[:n]
         if timed:
             self.kernel_ms += ev0.elapsed_time(ev1)
         merged = {f: scal[i] for i, f in enumerate(OUT_FIELDS)}
@@ -248,6 +257,55 @@ class WaveEngine:
             merged = {f: v[inv] for f, v in merged.items()}
         self.total_waves += int(merged["waves"].sum())
         return WaveResult(**merged)
+
+    def _seq_on(self, dev, Adev, Bdev):
+        """The sequence memories on a dp shard's device: copied once per
+        distinct device (and upload), not once per shard or launch."""
+        if self.mesh is None or dev == Adev.device:
+            return Adev, Bdev
+        ent = self._mirrors.get(dev)
+        if ent is None or ent[0] is not Adev or ent[1] is not Bdev:
+            A = Adev.to(dev)
+            ent = (Adev, Bdev, A, A if Bdev is Adev else Bdev.to(dev))
+            self._mirrors[dev] = ent
+        return ent[2], ent[3]
+
+    def _launch_shard(self, args, dev, Adev, Bdev, P, reverse, persistent):
+        """Upload one shard's lane inputs to ``dev`` and launch its kernel
+        there (asynchronous on the card); returns the wrapper's output."""
+        A, B = self._seq_on(dev, Adev, Bdev)
+        n = len(args[0])
+        # the lane inputs go up in one copy: the packed layout's (n, 8)
+        # records, else the rows of one array
+        kw = {}
+        if self.layout == "packed":
+            rec = np.zeros((n, NREC_IN), np.int32)
+            rec[:, :len(args)] = np.stack(args, 1)
+            kw["record"] = torch.from_numpy(rec).to(dev)
+            ins = list(kw["record"].unbind(1))
+        else:
+            ins = list(torch.from_numpy(np.stack(args)).to(dev))
+        # launches are counted on the wrappers themselves (_wc, _wp), which
+        # a test may stand in for with its own function
+        consts = dict(zip(("ts", "pave", "msc", "dsc"), self._consts))
+        cnt = "launches_" + self.layout
+        ctx = (torch.cuda.device(dev) if self.mesh is not None
+               and dev.type == "cuda" else contextlib.nullcontext())
+        with ctx:
+            if persistent:
+                real, names = _wp.wave_lanes_persistent, _wp.KERNEL_NAMES
+                before = getattr(real, cnt)
+                out = wave_lanes_persistent(
+                    *ins[:6], A, B, **consts, W=self.W, P=P, L=self._L,
+                    reverse=reverse, layout=self.layout, awst=ins[6],
+                    bwst=ins[7], **kw)
+            else:
+                real, names = _wc.wave_lanes, _wc.KERNEL_NAMES
+                before = getattr(real, cnt)
+                out = wave_lanes(*ins[:6], A, B, **consts, W=self.W, P=P,
+                                 reverse=reverse, layout=self.layout, **kw)
+        self.launches[names[self.layout]] += getattr(real, cnt) - before
+        return out
 
     # ---- full Local_Alignment over a batch of seeds ----
 

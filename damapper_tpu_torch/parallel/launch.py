@@ -10,10 +10,18 @@ the CPU), meet at a barrier, and rank 0 performs the house-keeping block:
 LAcheck over every output plus the cross-host `.las` merge (the LAcat step
 of damapper.c:893-910).
 
-The group uses the gloo backend: it carries only the barriers, which are
-host work.  No collective runs on a card, so ranks that share one card
-each open their own context on it (NCCL cannot place two ranks on one
-GPU).
+With ``--global-index`` (cooperative mode, BASELINE config 5) every rank
+runs every job instead, on one (dp, ref) mesh whose "ref" axis spans the
+ranks (parallel.mesh.coop_mesh): each rank builds the same indexes, keeps
+its shard of each reference block's index, and the seed match's counts,
+per-shard totals and emission buffers cross the ranks; rank 0 writes the
+output.  Each job ends with a status round, and a rank that fails tells
+its peers at their next cross-rank step, so they stop instead of waiting.
+
+The group uses the gloo backend: it carries the barriers and, in
+cooperative mode, the seed match's collectives, all from host copies.  No
+collective runs on a card, so ranks that share one card each open their
+own context on it (NCCL cannot place two ranks on one GPU).
 
 `run_plan_multihost` is the single-machine launcher used by tests and small
 clusters: it spawns one worker process per rank on localhost.  On a real
@@ -33,12 +41,6 @@ import subprocess
 import sys
 import tempfile
 import time
-
-GLOBAL_INDEX_UNSUPPORTED = (
-    "--global-index (one mesh across the ranks, with the reference k-mer "
-    "index sharded over them) is not ported to damapper_tpu_torch; run the "
-    "plan without it, each rank mapping its own jobs")
-
 
 def _job_argv(cmd: str) -> list[str]:
     """Strip the launcher prefix off a plan job command, returning damapper
@@ -76,11 +78,14 @@ def worker_main(argv: list[str] | None = None) -> int:
     ap.add_argument("--plan", required=True, help="plan JSON file")
     ap.add_argument("--out", default=".")
     ap.add_argument("--global-index", action="store_true",
-                    help="not ported: exits non-zero")
+                    help="cooperative mode: every rank runs every job on "
+                         "ONE (dp, ref) mesh whose ref axis spans the "
+                         "ranks: the reference k-mer index is sharded over "
+                         "them and the seed match sums its counts across "
+                         "them (BASELINE config 5).  Needs the device "
+                         "index (the default on the card; "
+                         "DAMAPPER_INDEX=device on the CPU).")
     args = ap.parse_args(argv)
-    if args.global_index:
-        print(GLOBAL_INDEX_UNSUPPORTED, file=sys.stderr)
-        return 2
 
     import torch.distributed as dist
 
@@ -91,8 +96,12 @@ def worker_main(argv: list[str] | None = None) -> int:
 
     from ..ops.wave_engine import resolve_device
     from ..pipeline.mapper import main_damapper
+    from . import mesh as pmesh
 
     os.chdir(args.out)
+    if args.global_index:
+        # cooperative mode: the mapper's mesh spans the ranks
+        os.environ["DAMAPPER_COOP"] = "1"
     rc = 0
     err = None
     t0 = time.time()
@@ -101,6 +110,18 @@ def worker_main(argv: list[str] | None = None) -> int:
         # reaches the barriers below, or the other ranks would deadlock
         dev = resolve_device(os.environ.get("DAMAPPER_DEVICE") or None)
         for job in plan["jobs"]:
+            if args.global_index:
+                # every rank runs the job over the one cross-rank mesh; the
+                # status round at its end keeps the ranks in step
+                print(f"[rank {args.rank}] blocks {job['blocks']} on "
+                      f"{_device_name(dev)} (global mesh)", flush=True)
+                before = dict(pmesh.COOP_STATS)
+                rc |= main_damapper(_job_argv(job["cmd"]))
+                pmesh.sync_point()
+                print(f"[rank {args.rank}] gloo " + json.dumps(
+                    {k: v - before[k] for k, v in pmesh.COOP_STATS.items()}),
+                    flush=True)
+                continue
             if job["host"] % args.nprocs != args.rank:
                 continue
             print(f"[rank {args.rank}] blocks {job['blocks']} on "
@@ -109,6 +130,13 @@ def worker_main(argv: list[str] | None = None) -> int:
     except Exception as e:
         print(f"[rank {args.rank}] failed: {e!r}", flush=True)
         err, rc = e, 1
+        if args.global_index and not isinstance(e, pmesh.PeerFailed):
+            # the peers wait in a cross-rank step: meet them there
+            try:
+                pmesh.signal_failure()
+            except Exception as e2:
+                print(f"[rank {args.rank}] could not signal the failure: "
+                      f"{e2!r}", flush=True)
     print(f"[rank {args.rank}] launches {json.dumps(_launches())}",
           flush=True)
     # every rank's blocks complete before house-keeping
@@ -149,12 +177,11 @@ def run_plan_multihost(plan_json: str, nprocs: int, workdir: str,
     caller's environment (plus env_extra).  Returns {"seconds": wall,
     "rc": int, "logs": [each rank's output]}.
 
-    global_index=True (one mesh across the ranks) is not ported and
-    raises NotImplementedError."""
+    global_index=True runs every job cooperatively on one mesh across the
+    ranks (the reference index sharded over them) instead of distributing
+    the jobs over the ranks."""
     import socket
 
-    if global_index:
-        raise NotImplementedError(GLOBAL_INDEX_UNSUPPORTED)
     if port is None:
         s = socket.socket()
         s.bind(("127.0.0.1", 0))
@@ -184,7 +211,8 @@ def run_plan_multihost(plan_json: str, nprocs: int, workdir: str,
                         "damapper_tpu_torch.parallel.launch",
                         "--rank", str(r), "--nprocs", str(nprocs),
                         "--coord", f"127.0.0.1:{port}", "--plan", str(planp),
-                        "--out", str(wd)]
+                        "--out", str(wd)] + (["--global-index"]
+                                             if global_index else [])
                 procs.append((subprocess.Popen(
                     argv, env=env, cwd=str(wd), stdout=log,
                     stderr=subprocess.STDOUT), log))

@@ -15,6 +15,16 @@ the run is on the card and the host when the caller asked for the CPU.
 The chain sweep runs on the host (native C++) or on the device
 (ops.chain_device): ``chain_backend``, else DAMAPPER_CHAIN, else the host.
 
+On a (dp, ref) device mesh (parallel.mesh; ``mesh``, by default every card
+of the process when there is more than one) the device index is sharded:
+the reads' indexes over "dp", each reference block's over "ref", two
+sharded matches a block (forward, then the reads' revcomp index in the
+complement frame), no reference-index cache; the wave engine shards its
+lanes over "dp".  A mesh across the ranks of a torch.distributed group
+(DAMAPPER_COOP=1, set by ``launch --global-index``) shards the index over
+the ranks; every rank runs the same host stages and the wave unsharded,
+and rank 0 alone writes the output.
+
 The external LAsort/LAcat/LAmerge post-pass of the reference (damapper.c:
 882-911) is replaced by the in-process chain-preserving sort of io.las.
 """
@@ -36,10 +46,40 @@ from ..ops.kmers import sort_kmers, sort_kmers_partitioned
 from ..ops.seeds import match_seeds, match_seeds_multi
 from ..ops.spec import new_align_spec
 from ..ops.wave_engine import WaveEngine, resolve_device
+from ..parallel import mesh as pmesh
 from .reporter import Reporter
 
 WAVE_BACKENDS = ("device", "oracle")
 BACKENDS = ("host", "device")
+
+
+def _local_devices(device) -> list:
+    """The devices of this process that a mesh may span: every CUDA card
+    when the run is on the card, else the one device asked for."""
+    import torch
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _auto_mesh(device):
+    """The (dp, ref) mesh of a run on ``device`` (None: one device).
+
+    Within a process it spans the process's devices (_local_devices), and
+    one device gives none.  Under a torch.distributed group a rank's mesh is
+    its own unless DAMAPPER_COOP=1 (set by ``launch --global-index``) asks
+    for the cooperative mesh across the ranks (parallel.mesh.coop_mesh),
+    whose "ref" axis shards the index over them: in the per-rank mode of
+    parallel.launch the ranks map different blocks, and collectives across
+    them would deadlock.  A mesh that cannot be built raises (the JAX
+    package returns None there)."""
+    if os.environ.get("DAMAPPER_COOP") == "1":
+        return pmesh.coop_mesh(device)
+    devs = _local_devices(device)
+    if len(devs) > 1:
+        return pmesh.make_mesh(len(devs), devices=devs)
+    return None
 
 
 def _physical_memory() -> int:
@@ -80,14 +120,16 @@ class DamapperConfig:
     see ops.wave_engine).  index_backend: "device" (ops.device_index on
     ``device``) or "host"; None: DAMAPPER_INDEX, else "device" on the card
     and "host" on the CPU.  chain_backend: "host" or "device"
-    (ops.chain_device on ``device``); None: DAMAPPER_CHAIN, else "host"."""
+    (ops.chain_device on ``device``); None: DAMAPPER_CHAIN, else "host".
+    mesh: a parallel.mesh.Mesh, None (one device) or "auto" (_auto_mesh,
+    resolved by run_damapper)."""
 
     def __init__(self, kmer=20, suppress=0, mem_limit=None, ave_error=.85,
                  spacing=100, best_tie=1.0, masks=(), verbose=False,
                  profile=False, do_a=True, do_b=False, map_order=True,
                  wave_backend="device", device=None, host_min=16,
                  persistent=None, packops=None, lanepack=None,
-                 index_backend=None, chain_backend=None):
+                 index_backend=None, chain_backend=None, mesh="auto"):
         self.kmer = kmer
         self.suppress = suppress
         self.mem_limit = _physical_memory() if mem_limit is None else mem_limit
@@ -115,6 +157,7 @@ class DamapperConfig:
                                       "DAMAPPER_CHAIN", "host")
         if self.index_backend == "device":
             dix._join_mode()    # an unknown DAMAPPER_JOIN raises here
+        self.mesh = mesh
 
 
 def _backend(name, arg, env, default) -> str:
@@ -216,8 +259,17 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
 
     _, broot, _ = dbio._split_db_path(reads_path)
 
+    mesh = _auto_mesh(cfg.device) if cfg.mesh == "auto" else cfg.mesh
+    # a mesh across ranks is the cooperative mode: every rank runs the same
+    # host stages, the reference index is sharded over the ranks, and only
+    # rank 0 writes the output files
+    multiproc = mesh is not None and dix._mesh_is_multiprocess(mesh)
     times = {"load": 0., "index": 0., "match": 0., "chain": 0., "align": 0.}
     use_device_index = cfg.index_backend == "device"
+    # dp x ref sharded matching: the reads' indexes sharded over "dp", each
+    # reference block's index over "ref"
+    sharded_ix = (use_device_index and mesh is not None
+                  and "ref" in mesh.axis_names)
     _t = time.time()
     reads_db = read_block(reads_path, cfg.masks, cfg.kmer)
     times["load"] += time.time() - _t
@@ -233,6 +285,9 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
         bindex_rc = dix.device_sort_kmers(reads_db, cfg.kmer, cfg.suppress,
                                           comp=True, seq_dev=reads_seq_dev)
         del reads_seq_dev
+        if sharded_ix:
+            bindex = dix.shard_index(bindex, mesh, "dp")
+            bindex_rc = dix.shard_index(bindex_rc, mesh, "dp")
     else:
         bindex = sort_kmers(reads_db, cfg.kmer, cfg.suppress)
     times["index"] += time.time() - _t
@@ -266,7 +321,8 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
         use_sub = (sub_bases > 0 and cfg.suppress == 0
                    and ref_blk.totlen > 2 * sub_bases)
 
-        if use_device_index:
+        if use_device_index and not sharded_ix:
+            # the sharded index is bound to its mesh: no cache there
             rkey = _ref_cache_key(pwd, aroot_stub, stubp, k, cfg)
             cached = _ref_cache_get(rkey)
         for comp in (0, 1):
@@ -287,10 +343,20 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
                         aindex = dix.device_sort_kmers(
                             ref_blk, cfg.kmer, cfg.suppress,
                             device=cfg.device)
-                        _ref_cache_put(rkey, aindex)
+                        if sharded_ix:
+                            aindex = dix.shard_index(aindex, mesh, "ref")
+                        else:
+                            _ref_cache_put(rkey, aindex)
                 times["index"] += time.time() - _t
                 _t = time.time()
-                if comp == 0:
+                if sharded_ix:
+                    # two sharded matches a block: the reads' forward
+                    # index, then their revcomp index in the complement
+                    # frame against the same forward reference index
+                    hits = dix.device_match_seeds_sharded(
+                        bindex_rc if comp else bindex, aindex, mesh,
+                        cfg.mem_limit, db_bytes, comp_frame=bool(comp))
+                elif comp == 0:
                     # one combined join serves both orientations; the comp
                     # hits wait for the comp pass of the loop
                     hits, pending_cmp = dix.device_match_seeds_pair(
@@ -353,7 +419,11 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
 
     engine = None
     if cfg.wave_backend == "device":
+        # on a mesh across ranks the wave stays on each rank's device: the
+        # host stages are replicated, so every rank holds the same lanes
+        # and needs all their results
         engine = WaveEngine(spec, device=cfg.device, host_min=cfg.host_min,
+                            mesh=None if multiproc else mesh,
                             **cfg.wave_mode)
     rep = Reporter(spec, cfg.kmer, cfg.spacing, cfg.best_tie,
                    do_a=cfg.do_a, do_b=cfg.do_b, engine=engine)
@@ -370,7 +440,7 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
               f"{cfg.chain_backend} (DAMAPPER_CHAIN), join "
               f"{dix._join_mode()} (DAMAPPER_JOIN), upload "
               f"{'packed' if dix.packed_upload_on() else 'plain'} "
-              f"(DAMAPPER_PACK_UPLOAD)", file=sys.stderr)
+              f"(DAMAPPER_PACK_UPLOAD), mesh {mesh}", file=sys.stderr)
         if engine is not None:
             # wave-engine telemetry: a silent drift to the host-oracle
             # fallback would destroy device perf while keeping output
@@ -382,17 +452,22 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
                   f"{engine.n_fallback:,} overflow-fallback, "
                   f"{engine.n_hostmin:,} tiny-round host", file=sys.stderr)
 
+    # cooperative mode: every rank computed the same records; rank 0's copy
+    # is the output, the other ranks skip the (racy) file writes
+    rank0 = not multiproc or mesh.rank == 0
     a_path = b_path = None
     if cfg.do_a:
         a_recs = lasio.sort_las(a_recs, cfg.map_order)
         a_path = os.path.join(out_dir, f"{broot}.{aroot}.las")
-        lasio.write_las(a_path, a_recs, cfg.spacing)
+        if rank0:
+            lasio.write_las(a_path, a_recs, cfg.spacing)
     if cfg.do_b:
         b_recs = lasio.sort_las(b_recs, cfg.map_order)
         b_path = os.path.join(out_dir, f"{aroot}.{broot}.las")
-        lasio.write_las(b_path, b_recs, cfg.spacing)
+        if rank0:
+            lasio.write_las(b_path, b_recs, cfg.spacing)
 
-    if cfg.profile:
+    if cfg.profile and rank0:
         anno = np.zeros(reads_db.nreads + 1, np.int64)
         data = bytearray()
         for i, logv in enumerate(profile_out):
@@ -412,6 +487,9 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
     LAST_STATS = dict(times=dict(times),
                       index_backend=cfg.index_backend,
                       chain_backend=cfg.chain_backend,
+                      mesh=None if mesh is None else mesh.shape,
+                      mesh_ranks=(1 if mesh is None
+                                  else len(set(mesh.ranks.flat))),
                       ref_index_cache_hits=cache_hits,
                       ref_index_builds=cache_builds,
                       total_waves=getattr(engine, "total_waves", 0),

@@ -1,5 +1,6 @@
 """The CUDA kernels (wave, op-cost probes) against their plain PyTorch
-versions, on the card.
+versions, on the card, and the device index, chain sweep and mesh path on
+the card against their CPU runs.
 
 These tests need a CUDA card and skip without one.  They import nothing of
 JAX, so they run on a machine that has only PyTorch:
@@ -242,3 +243,69 @@ def test_device_chain_sweep_on_card_equals_cpu(cuda_device):
     for gi in a:
         for x, y in zip(a[gi], b[gi]):
             assert np.array_equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 2), (1, 8)],
+                         ids=lambda s: f"dp{s[0]}_ref{s[1]}")
+def test_sharded_match_on_card_virtual_shards_equals_cpu(cuda_device,
+                                                        tmp_path, shape):
+    """The sharded match on eight virtual shards of the card equals its run
+    on virtual shards of the CPU and the card's single-device match, in
+    both frames."""
+    from damapper_tpu_torch.convert import mesh_like
+    from damapper_tpu_torch.ops import device_index as dix
+    reads, ref = _small_dbs(tmp_path)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        mesh = mesh_like(shape, [dev] * 8)
+        f, c, b = (dix.device_sort_kmers(reads, 16, device=dev),
+                   dix.device_sort_kmers(reads, 16, comp=True, device=dev),
+                   dix.device_sort_kmers(ref, 16, device=dev))
+        bs = dix.shard_index(b, mesh, "ref")
+        runs[str(dev)] = [dix.device_match_seeds_sharded(
+            dix.shard_index(a, mesh, "dp"), bs, mesh, 1 << 34, 1000,
+            comp_frame=comp) for a, comp in ((f, False), (c, True))]
+        if dev is cuda_device:
+            single = [dix.device_match_seeds(a, b, 1 << 34, 1000,
+                                             comp_frame=comp)
+                      for a, comp in ((f, False), (c, True))]
+    for x, y, z in zip(runs["cpu"], runs[str(cuda_device)], single):
+        assert len(x) > 0
+        for fld in ("aread", "bread", "apos", "diag"):
+            assert np.array_equal(getattr(x, fld), getattr(y, fld)), fld
+            assert np.array_equal(getattr(z, fld), getattr(y, fld)), fld
+
+
+@pytest.mark.cuda
+def test_dp_sharded_engine_on_card_equals_unsharded(cuda_device):
+    """The wave engine on a dp mesh of 3 virtual shards of the card gives
+    the unsharded engine's paths, one classic launch a shard a round."""
+    from damapper_tpu_torch.ops.wave_engine import WaveEngine
+    from damapper_tpu_torch.parallel.mesh import Mesh
+    seqmem, insts = make_lane_cases(2024, 50, err=0.15)
+    outs = {}
+    for nm, mesh in (("single", None),
+                     ("dp3", Mesh(np.array([cuda_device] * 3, object),
+                                  ("dp",)))):
+        eng = WaveEngine(SPEC, device=cuda_device, host_min=0, mesh=mesh)
+        mem = eng.upload(seqmem)
+        res = eng.local_alignment_batch(mem, mem, seqmem, seqmem, insts)
+        outs[nm] = ([(p.abpos, p.bbpos, p.aepos, p.bepos, p.diffs,
+                      list(p.trace)) for pair in res for p in pair],
+                    eng.total_waves, eng.n_fallback)
+        outs[nm + "_launches"] = eng.launches["wave_lanes"]
+    assert outs["dp3"] == outs["single"]
+    assert outs["dp3_launches"] == 3 * outs["single_launches"] > 0
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_card(cuda_device):
+    """The real-mapper dryrun on eight virtual shards of the card: the
+    (4, 2) mesh run's .las equals the single-device run's (asserted
+    inside), and its wave ran on the classic kernel."""
+    from damapper_tpu_torch.parallel.mesh import dryrun_multichip
+    out = dryrun_multichip(8)
+    assert out["records"] > 0
+    assert out["mesh"]["mesh"] == {"dp": 4, "ref": 2}
+    assert out["mesh"]["kernel_launches"]["wave_lanes"] > 0
