@@ -20,14 +20,15 @@ ends with {"ok": false, "phase": <the phase>, "error": <the exception>}:
                 seeds next to contig ends and on the adversarial set
                 (utils/sim.py: exact repeats, exact runs of 60-600 bases,
                 seeds next to the sequence memory's ends), plain and packed
-                at W=128 (the card's band) and W=64, lanepack at W=64; the
-                three persistent kernels at W=64 on the same three sets, on
-                8 lanes of 40-45 kb reads (L=65536: the lane-packed windows
-                no longer fit shared memory) and on the 3-9 kb reads with a
-                window too small for them (misses), on the 3-9 kb reads,
-                the long reads and the adversarial set by both window
-                routes.  Each launch prints its time and ns per wave of its
-                longest lane.
+                at W=128 (the card's band) and W=64, lanepack (one lane a
+                64-thread block) at W=64, and all three at W=64 on 8 lanes
+                of 40-45 kb reads; the three persistent kernels at W=64 on
+                the same sets (the long reads at L=65536: 128 KB of windows
+                a lane, in shared memory in every layout) and on the 3-9 kb
+                reads with a window too small for them (misses), on the 3-9
+                kb reads, the long reads and the adversarial set by both
+                window routes.  Each launch prints its time and ns per wave
+                of its longest lane.
                 Then the three op-cost probe kernels (csrc/probes.cu, the
                 loops of tools/mosaic_{floor,ops,carry}.py): every pattern
                 against its plain version on seeded int32 inputs at G=9,
@@ -272,12 +273,12 @@ def phase_kernel(torch, seed):
                                                   OUT_FIELDS, pack_record,
                                                   wave_lanes, wave_lanes_ref)
     from damapper_tpu_torch.utils.sim import (make_adversarial_lane_cases,
-                                              make_lane_cases)
+                                              make_lane_cases,
+                                              make_long_lane_cases)
 
     spec = new_align_spec(0.85, 100, [.25, .25, .25, .25], True)
     consts = dict(ts=spec.trace_space, pave=spec.ave_path, msc=spec.mscore,
                   dsc=spec.dscore)
-    P = 512             # the pool bucket of <=9 kb reads
     dev = torch.device("cuda")
     sets = {
         "reads": make_lane_cases(seed, 128, glen=200_000, rlen=9000,
@@ -288,6 +289,8 @@ def phase_kernel(torch, seed):
                                 rmin=8500, mix=True, err=0.15),
         # exact repeats, long exact runs, seeds next to the memory's ends
         "adversarial": make_adversarial_lane_cases(seed),
+        # 40-45 kb reads (W=64 only; the engine's pool cap)
+        "long": make_long_lane_cases(seed + 2, 8)[:2],
     }
     # the band each layout's row reports: the engine's default for it
     band = {"plain": 128, "packed": 128, "lanepack": 64}
@@ -301,9 +304,11 @@ def phase_kernel(torch, seed):
             tiled = {f: v.repeat(TILES) if f in IN_FIELDS else v
                      for f, v in lanes.items()}
             tiled_rec = pack_record([tiled[f] for f in IN_FIELDS])
+        # the pool bucket of <=9 kb reads; 45 kb reads drop ~900 pebbles
+        P = 2048 if nm == "long" else 512
         for reverse in (False, True):
             d = "rev" if reverse else "fwd"
-            for W in (128, 64):
+            for W in ((64,) if nm == "long" else (128, 64)):
                 args = dict(consts, W=W, P=P, reverse=reverse)
                 torch.cuda.synchronize()
                 t0 = time.time()
@@ -435,7 +440,7 @@ def phase_persistent_kernels(torch, seed):
             for lay in LAYOUTS:
                 # both routes on the reads and long sets (where the windows
                 # fit shared memory), the default route elsewhere
-                fits = window_fits_smem(L, lay)
+                fits = window_fits_smem(L)
                 routes = ((True, False) if fits else (False,)) \
                     if nm in ("reads", "long", "adversarial") else (fits,)
                 for smem in routes:

@@ -15,15 +15,16 @@
 //
 // Layout: one row g per W threads, thread t owns column t, as the wave
 // kernels own one lane per W threads.  Every cross-thread step goes through
-// wave_body.cuh's barrier policies: BlockBar (one block of W threads per
-// row, __syncthreads) or HalfBar (W=64 only: rows 2b and 2b+1 in the two
-// halves of a 128-thread block, each half on its own named barrier, as the
-// lane-packed wave kernels run).  Votes (vote_any) and row reductions
-// (block_reduce: a warp butterfly, then the warps' values through shared
-// memory between two barriers) are the steps of the wave body before its
-// barrier rounds (Rounds, redux.sync); a roll is a store to shared memory,
-// a barrier, a neighbour read and a barrier.  So each probe times a step
-// of that body, under the policy it executed it with.
+// a barrier policy (below): BlockBar (one block of W threads per row,
+// __syncthreads, as the wave kernels run) or HalfBar (W=64 only: rows 2b
+// and 2b+1 in the two halves of a 128-thread block, each half on its own
+// named barrier, as the lane-packed wave kernels once ran).  Votes
+// (vote_any) and row reductions (block_reduce: a warp butterfly, then the
+// warps' values through shared memory between two barriers) are the steps
+// of the wave body before its barrier rounds (Rounds, redux.sync); a roll
+// is a store to shared memory, a barrier, a neighbour read and a barrier.
+// So each probe times a step of that body, under the policy it executed it
+// with.
 //
 // int32 arithmetic wraps in two's complement, as in JAX: every add that can
 // overflow goes through unsigned (wadd), since signed overflow is undefined
@@ -54,6 +55,20 @@
 namespace {
 
 using namespace wavebody;
+
+// the barrier policies: the whole block, or the named barrier of the 64
+// threads of one half of a 128-thread block
+struct BlockBar {
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
+struct HalfBar {
+  int id;   // named barrier 1 or 2 (barrier 0 is __syncthreads')
+
+  __device__ __forceinline__ void sync() const {
+    asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
+  }
+};
 
 template <int V>
 struct Int {

@@ -9,9 +9,9 @@
 //   wave_lanes_packed_launch   <- segment_pallas_packed, the pallas_call at
 //                                 wave_pallas.py:1457 (state packed into a
 //                                 few buffers)
-//   wave_lanes_lanepack_launch <- segment_pallas_lp, the pallas_call at
+//   wave_lanes_launch at W=64  <- segment_pallas_lp, the pallas_call at
 //                                 wave_pallas.py:1413 (two W=64 lanes per
-//                                 128-wide row)
+//                                 128-wide row; the lanepack layout below)
 // The result is the driver's output contract (wave_pallas.py:1634-1640):
 // trim point, REACH point, pebble pool, avail, overflow and wave count per
 // lane, cell for cell; the three layouts compute one function.
@@ -37,10 +37,17 @@
 //               and one (N, 16) record out, so the caller moves one array
 //               each way: the TPU layout packed its operands for the same
 //               reason, fewer transfers.
-//   * lanepack: one block of 128 threads runs two W=64 lanes, lane 2g in
-//               threads 0-63 and lane 2g+1 in threads 64-127, each half on
-//               its own named barrier (wave_body.cuh HalfBar), so a finished
-//               half leaves its loop without holding up the other.
+//   * lanepack: the plain layout at W=64, one block of 64 threads per
+//               lane (the wrapper launches wave_lanes_launch).  The TPU packs
+//               two W=64 lanes into one 128-row tile because its vector
+//               registers are 128 wide.  On this card the packing only
+//               costs: two lanes in a 128-thread block wait on named
+//               half-block barriers dearer than __syncthreads, and a
+//               finished half holds its registers until the other ends;
+//               one lane on one warp (two slots a thread, no barrier) is
+//               slower still, since one warp then issues the lane's whole
+//               wave.  Both lost to one lane a block at every launch size
+//               measured (PERF.md §6).
 //
 // What bounds it on this card: neither bytes nor arithmetic.  A lane reads
 // each base of its A and B spans a few times and writes 16 bytes per
@@ -83,8 +90,7 @@ __device__ __forceinline__ void classic_lane(IO io, const uint8_t* A,
   const int lane = blockIdx.x;
   const int t = threadIdx.x;
   int vals[NOUT];
-  wave_lane<W, REV>(io.load(lane), ClassicSeq{A, LA, B, LB}, BlockBar{}, sh,
-                    t, cs,
+  wave_lane<W, REV>(io.load(lane), ClassicSeq{A, LA, B, LB}, sh, t, cs,
                     reinterpret_cast<int4*>(pool) + (long long)lane * cs.P,
                     vals);
   if (t == 0) io.store(lane, vals);
@@ -111,25 +117,6 @@ wave_lanes_dense_kernel(IO io, const uint8_t* __restrict__ A, long long LA,
                         const uint8_t* __restrict__ B, long long LB,
                         Consts cs, int* __restrict__ pool) {
   classic_lane<128, REV>(io, A, LA, B, LB, cs, pool);
-}
-
-// lanepack: one block of 128 threads, two W=64 lanes, one per half
-template <bool REV>
-__global__ void __launch_bounds__(128)
-wave_lanes_lp_kernel(SplitIO io, const uint8_t* __restrict__ A, long long LA,
-                     const uint8_t* __restrict__ B, long long LB, Consts cs,
-                     int* __restrict__ pool) {
-  __shared__ LaneShared<64> sh[2];
-  const int half = threadIdx.x >> 6;
-  const int t = threadIdx.x & 63;
-  const int lane = 2 * blockIdx.x + half;
-  if (lane >= io.n) return;   // odd lane count: the last half idles
-  int vals[NOUT];
-  wave_lane<64, REV>(io.load(lane), ClassicSeq{A, LA, B, LB},
-                     HalfBar{1 + half}, sh[half], t, cs,
-                     reinterpret_cast<int4*>(pool) + (long long)lane * cs.P,
-                     vals);
-  if (t == 0) io.store(lane, vals);
 }
 
 // At W=128, a launch of more lanes than wave_lanes_kernel holds on the
@@ -197,27 +184,6 @@ extern "C" int wave_lanes_packed_launch(
   return (int)launch_lanes(io, A, LA, B, LB, n, W, reverse,
                            Consts{P, ts, pave, msc, dsc, max_waves}, pool,
                            static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int wave_lanes_lanepack_launch(
-    const int* abase, const int* bbase, const int* mida, const int* k0,
-    const int* aoffp, const int* boffp, const uint8_t* A, long long LA,
-    const uint8_t* B, long long LB, int n, int P, int reverse, int ts,
-    int pave, int msc, int dsc, int max_waves, int* out, int* pool,
-    void* stream) {
-  if (n <= 0) return 0;
-  const SplitIO io{abase, bbase, mida, k0, aoffp, boffp, nullptr, nullptr,
-                   out, n};
-  const Consts cs{P, ts, pave, msc, dsc, max_waves};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = (n + 1) / 2;
-  if (reverse)
-    wave_lanes_lp_kernel<true><<<blocks, 128, 0, st>>>(io, A, LA, B, LB, cs,
-                                                       pool);
-  else
-    wave_lanes_lp_kernel<false><<<blocks, 128, 0, st>>>(io, A, LA, B, LB, cs,
-                                                        pool);
-  return (int)cudaGetLastError();
 }
 
 extern "C" const char* wave_error_string(int code) {

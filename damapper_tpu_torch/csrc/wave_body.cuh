@@ -1,10 +1,19 @@
-// The device-side body of one wave lane, shared by the classic kernel
-// (wave.cu) and the persistent window kernels (wave_persistent.cu).
+// The device-side body of one wave lane, shared by the classic kernels
+// (wave.cu) and the persistent window kernels (wave_persistent.cu), which
+// replace the TPU wave kernels of damapper_tpu/ops/wave_pallas.py (the
+// segment kernels at :1524, :1457 and :1413, the persistent kernels at
+// :2104, :2031 and :1981).
 //
 // wave_lane() runs one direction of Local_Alignment's adaptive wave for one
 // lane, from the wave-0 prologue (seed snake, first pebbles, first boundary
-// clip) to the lane's end, over W threads (thread t owns ring slot t; see
-// the note at the top of wave.cu).  It is templated on two policies:
+// clip) to the lane's end, over the W threads of a block (thread t owns
+// ring slot t; see the note at the top of wave.cu), which meet at
+// __syncthreads.  Every wave kernel runs one lane a block, the TPU's
+// lane-packed layouts included: two W=64 lanes in a 128-thread block on
+// named half-block barriers, and one W=64 lane on one warp (two slots a
+// thread, no barrier), both lost to it on the H100 (PERF.md §6; probes.cu
+// keeps the half-block barrier to price it).  It is templated on one
+// policy:
 //
 //   Seq  — sequence access: achar(i, miss) / bchar(i, miss) give the byte at
 //          global index i of the A / B sequence memory; awalk<REV>(i) /
@@ -20,10 +29,6 @@
 //          a byte is needed when the snake stops on it (the B byte, and the
 //          A byte when the B byte is a base) or when the REACH rest test
 //          reads it.
-//   Bar  — the barrier of the threads that run the lane: BlockBar
-//          (__syncthreads, the whole block) or HalfBar (a named barrier of
-//          the 64 threads of one half of a 128-thread block, so that two
-//          lanes share a block and each half waits only for itself).
 //
 // With ClassicSeq the window tests compile away.  The lane-input layouts
 // (SplitIO, PackedIO) at the end serve both files' kernels.
@@ -35,17 +40,17 @@
 // at the first in walk order; only the stop's index is tested for a window
 // miss), and a wave on the common path (no clip, no drop trip) meets at
 // three barriers:
-//   round 0 (:591): the band into shared memory for pick3;
-//   round A (:746): after the snake, the clip and window votes, the
+//   round 0 (:579): the band into shared memory for pick3;
+//   round A (:734): after the snake, the clip and window votes, the
 //     first drop test with the ranks of its trip, the trigger scan's warp
 //     totals (the scan runs in slot order, segmented at the ring's wrap)
 //     and each warp's best (c, rel), which give bandc and kstar;
-//   round B (:884): lastc and the band prune's hi_rel and lo_rel
+//   round B (:872): lastc and the band prune's hi_rel and lo_rel
 //     (one packed key under a per-halfword max).  Warp-wide maxima,
 //     minima and sums are one redux.sync each.
-// A drop trip adds one round (:820: the next trip's test and ranks), a
+// A drop trip adds one round (:808: the next trip's test and ranks), a
 // clipped wave its ten clip reductions (one round each, Rounds::reduce)
-// and a re-prune of the post-clip band (:942).  The rounds alternate
+// and a re-prune of the post-clip band (:930).  The rounds alternate
 // two record buffers, so no barrier only guards a buffer's reuse.  The
 // staged windows of wave_persistent.cu need no padding: a walk loads a
 // word whole only inside the window's bytes and reads the rest byte by
@@ -249,22 +254,6 @@ struct WindowSeq {
 };
 
 // ---------------------------------------------------------------------------
-// barrier policies
-// ---------------------------------------------------------------------------
-
-struct BlockBar {
-  __device__ __forceinline__ void sync() const { __syncthreads(); }
-};
-
-struct HalfBar {
-  int id;   // named barrier 1 or 2 (barrier 0 is __syncthreads')
-
-  __device__ __forceinline__ void sync() const {
-    asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
-  }
-};
-
-// ---------------------------------------------------------------------------
 // the lane
 // ---------------------------------------------------------------------------
 
@@ -306,10 +295,9 @@ struct OpSum {
 // round i's buffer only after its writer has passed round i + 1's barrier,
 // which every reader of round i reaches after reading it, so no barrier
 // exists only to guard a buffer's reuse.
-template <int NW, class Bar>
+template <int NW>
 struct Rounds {
   int4 (*rec)[2 * NW];
-  Bar bar;
   int wl, wi;
   int par;
 
@@ -320,7 +308,7 @@ struct Rounds {
       b[2 * wi] = r0;
       b[2 * wi + 1] = r1;
     }
-    bar.sync();
+    __syncthreads();
     return b;
   }
   // a lane-wide op-reduction of v in one round
@@ -330,7 +318,7 @@ struct Rounds {
     int4* b = rec[par];
     par ^= 1;
     if (wl == 0) b[2 * wi].x = v;
-    bar.sync();
+    __syncthreads();
     int r = b[0].x;
 #pragma unroll
     for (int i = 1; i < NW; ++i) r = op(r, b[2 * i].x);
@@ -377,7 +365,7 @@ __device__ long long wave_section_clocks[CLK_LANES][NSEC];
     clk_[sec] += c_ - clk_last_;   \
     clk_last_ = c_;                \
   } while (0)
-// the lane's row: blocks of W threads hold one lane, of 2W threads two
+// the lane's row: a block of W threads holds one lane
 #define WCLK_END                                                       \
   do {                                                                 \
     const int row_ = blockIdx.x * (blockDim.x / W) + threadIdx.x / W; \
@@ -411,12 +399,12 @@ __device__ __forceinline__ void trim_table(int x, int msc, int dsc, int& t,
 }
 
 // One lane, prologue to end.  t: the thread's slot (0..W-1) among the W
-// threads that Bar synchronises.  lpool: the lane's P pool rows.  On return
-// every thread holds the lane's NOUT results in vals.
-template <int W, bool REV, class Seq, class Bar>
+// threads of the block.  lpool: the lane's P pool rows.  On return every
+// thread holds the lane's NOUT results in vals.
+template <int W, bool REV, class Seq>
 __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
-                                          const Bar& bar, LaneShared<W>& sh,
-                                          const int t, const Consts cs,
+                                          LaneShared<W>& sh, const int t,
+                                          const Consts cs,
                                           int4* __restrict__ lpool,
                                           int (&vals)[NOUT]) {
   constexpr int Wm = W - 1;
@@ -432,7 +420,7 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
   const int aoffp = in.aoffp, boffp = in.boffp;
   const int P = cs.P, TS = cs.TS;
   int* const pro = sh.pro;
-  Rounds<NW, Bar> rd{sh.rec, bar, wl, wi, 0};
+  Rounds<NW> rd{sh.rec, wl, wi, 0};
 
   // ---------------- wave 0: prologue (make_prologue) ----------------
   const int y0 = floordiv(mida - k0, 2);
@@ -480,7 +468,7 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
       pro[10] = miss;
     }
   }
-  bar.sync();
+  __syncthreads();
   const int y0f = pro[0];
   const bool clipA0 = pro[1], clipB0 = pro[2];
   int pmiss = Seq::kWindowed ? pro[10] : 0;
@@ -513,7 +501,7 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
     }
     pro[6] = nn; pro[7] = h; pro[8] = mk; pro[9] = av;
   }
-  bar.sync();
+  __syncthreads();
   na0 = pro[3];
   const int ha0 = pro[4], amk0 = pro[5];
   nb0 = pro[6];
@@ -588,7 +576,7 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
     sh.sV[t] = V; sh.sNA[t] = NA; sh.sNB[t] = NB; sh.sM[t] = M;
     sh.sT[t] = T; sh.sHA[t] = HA; sh.sHB[t] = HB; sh.sMA[t] = MA;
     sh.sMB[t] = MB;
-    bar.sync();
+    __syncthreads();
     WCLK(SEC_STORE);
     const int tp = (t + 1) & Wm, tm = (t - 1) & Wm;
     if (t == sl) {
@@ -680,7 +668,7 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
       y += sgn * run;
     }
 #ifdef WAVE_SECTION_CLOCKS
-    bar.sync();   // so that the section holds the band's longest snake
+    __syncthreads();   // so that the section holds the band's longest snake
 #endif
     WCLK(SEC_SNAKE);
 
@@ -985,7 +973,7 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
     pro[2] = ltha;
     pro[3] = lthb;
   }
-  bar.sync();
+  __syncthreads();
   const bool have = kmax > 0;
   vals[0] = have ? pro[0] : trima0;
   vals[1] = have ? pro[1] : trimy0;

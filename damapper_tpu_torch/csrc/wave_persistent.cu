@@ -9,8 +9,9 @@
 //                                      operands)
 //   wave_persistent_packed_launch   <- kernel_pallas_packed, the pallas_call
 //                                      at wave_pallas.py:2031 (packed operands)
-//   wave_persistent_lanepack_launch <- kernel_pallas_lp, the pallas_call at
-//                                      wave_pallas.py:1981 (two lanes per row)
+//   wave_persistent_launch at W=64  <- kernel_pallas_lp, the pallas_call at
+//                                      wave_pallas.py:1981 (two lanes per
+//                                      row; the lanepack layout below)
 // The result is the driver's output contract (wave_pallas.py:2196-2206):
 // trim point, REACH point, pebble pool, avail, overflow and wave count per
 // lane, as wave.cu gives it; on every lane that no kernel flags as overflowed
@@ -38,16 +39,20 @@
 //               aoffp, boffp, awst, bwst), read as two 16-byte loads, and one
 //               (N, 16) record out (the 14 fields and 2 pad words) written as
 //               four 16-byte stores, so the caller moves one array each way.
-//   * lanepack: one block of 128 threads runs two W=64 lanes, lane 2g in
-//               threads 0-63 and lane 2g+1 in threads 64-127; each half waits
-//               only on its own named barrier (bar.sync / bar.red.or.pred on
-//               barrier 1 + half, 64 threads), so a finished half leaves its
-//               loop without holding up the other.
+//   * lanepack: the plain layout, one block of W=64 threads per lane (the
+//               wrapper launches wave_persistent_launch).  The TPU runs two
+//               lanes per 128-wide row because of its vector width.  Here
+//               two lanes in a 128-thread block wait on named half-block
+//               barriers, and their 4L bytes of windows leave shared memory
+//               at L = 65,536; one lane on one warp issues the lane's whole
+//               wave from one warp.  Both lost to one lane a block (PERF.md
+//               §6), which keeps its 2L bytes of windows in shared memory up
+//               to L = 65,536.
 // Windows that do not fit the 227 KB of shared memory a block may use (2L
-// bytes per lane, 4L per lane-packed block, plus the body's static state)
-// take the same policy with the bytes read in place from global memory
-// (SMEM=false below): same bounds, same miss flags, same outputs.  The
-// wrapper picks the route by size, or as its caller asks.
+// bytes per lane, plus the body's static state) take the same policy with
+// the bytes read in place from global memory (SMEM=false below): same
+// bounds, same miss flags, same outputs.  The wrapper picks the route by
+// size, or as its caller asks.
 //
 // What bounds it on this card: latency.  The bytes are the two windows per
 // lane and the pool rows (tens of kilobytes per lane, microseconds per round
@@ -133,35 +138,9 @@ persistent_kernel(IO io, const uint8_t* __restrict__ A, long long LA,
       make_window<SMEM>(g_win, A, LA, B, LB, awst, bwst, L, t, W);
   if (SMEM) __syncthreads();
   int vals[NOUT];
-  wave_lane<W, REV>(io.load(lane), seq, BlockBar{}, sh, t, cs,
+  wave_lane<W, REV>(io.load(lane), seq, sh, t, cs,
                     reinterpret_cast<int4*>(pool) + (long long)lane * cs.P,
                     vals);
-  if (t == 0) io.store(lane, vals);
-}
-
-// lanepack: one block of 128 threads, two W=64 lanes, one per half
-template <bool REV, bool SMEM>
-__global__ void __launch_bounds__(128)
-persistent_lp_kernel(SplitIO io, const uint8_t* __restrict__ A, long long LA,
-                     const uint8_t* __restrict__ B, long long LB, int L,
-                     Consts cs, int* __restrict__ pool) {
-  extern __shared__ __align__(16) uint8_t g_win[];
-  __shared__ LaneShared<64> sh[2];
-  const int half = threadIdx.x >> 6;
-  const int t = threadIdx.x & 63;
-  const int lane = 2 * blockIdx.x + half;
-  if (lane >= io.n) return;   // odd lane count: the last half idles
-  const HalfBar bar{1 + half};
-  long long awst, bwst;
-  io.window(lane, awst, bwst);
-  const WindowSeq<SMEM> seq = make_window<SMEM>(
-      g_win + (SMEM ? 2 * (long long)L * half : 0), A, LA, B, LB, awst, bwst,
-      L, t, 64);
-  if (SMEM) bar.sync();
-  int vals[NOUT];
-  wave_lane<64, REV>(io.load(lane), seq, bar, sh[half], t, cs,
-                     reinterpret_cast<int4*>(pool) + (long long)lane * cs.P,
-                     vals);
   if (t == 0) io.store(lane, vals);
 }
 
@@ -230,32 +209,6 @@ extern "C" int wave_persistent_packed_launch(
   return (int)launch_lanes(io, n, W, reverse, smem, A, LA, B, LB, L,
                            Consts{P, ts, pave, msc, dsc, max_waves}, pool,
                            static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int wave_persistent_lanepack_launch(
-    const int* abase, const int* bbase, const int* mida, const int* k0,
-    const int* aoffp, const int* boffp, const int* awst, const int* bwst,
-    const uint8_t* A, long long LA, const uint8_t* B, long long LB, int n,
-    int P, int L, int reverse, int smem, int ts, int pave, int msc, int dsc,
-    int max_waves, int* out, int* pool, void* stream) {
-  if (n <= 0) return 0;
-  const SplitIO io{abase, bbase, mida, k0, aoffp, boffp, awst, bwst, out, n};
-  const Consts cs{P, ts, pave, msc, dsc, max_waves};
-  const int blocks = (n + 1) / 2;
-  const size_t dyn = smem ? 4 * (size_t)L : 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (reverse) {
-    if (smem)
-      return (int)launch(persistent_lp_kernel<true, true>, blocks, 128, dyn,
-                         io, A, LA, B, LB, L, cs, pool, st);
-    return (int)launch(persistent_lp_kernel<true, false>, blocks, 128, dyn,
-                       io, A, LA, B, LB, L, cs, pool, st);
-  }
-  if (smem)
-    return (int)launch(persistent_lp_kernel<false, true>, blocks, 128, dyn,
-                       io, A, LA, B, LB, L, cs, pool, st);
-  return (int)launch(persistent_lp_kernel<false, false>, blocks, 128, dyn,
-                     io, A, LA, B, LB, L, cs, pool, st);
 }
 
 extern "C" const char* wave_persistent_error_string(int code) {

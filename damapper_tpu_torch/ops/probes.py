@@ -4,7 +4,8 @@ microbenchmarks (``tools/mosaic_floor.py``, ``mosaic_ops.py``,
 
 Each probe runs ``n`` iterations of one pattern of the wave body's inner
 loop on a (G, W) int32 array, one row per W threads, with the cross-thread
-steps on the wave body's block or half-block barriers.  Three kernels in
+steps on the wave body's block barrier or on the half-block barriers that
+the lane-packed wave kernels once ran on.  Three kernels in
 ``csrc/probes.cu``, built with nvcc at first use into
 ``build/torch_kernels/libprobes.so`` and bound through ctypes:
 

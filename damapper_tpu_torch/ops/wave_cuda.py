@@ -8,8 +8,8 @@ the host trace extraction (ops.wave) consumes.
 
 Two implementations with one contract:
 
-  * ``csrc/wave.cu`` — the hand-written CUDA kernels for sm_90a, one per
-    layout of the lane state (see the note at the top of that file), built
+  * ``csrc/wave.cu`` — the hand-written CUDA kernels for sm_90a, for three
+    layouts of the lane state (see the note at the top of that file), built
     with nvcc at first use into ``build/torch_kernels/`` and bound through
     ctypes:
       layout "plain"    — one thread block per lane, one int32 array per
@@ -17,8 +17,9 @@ Two implementations with one contract:
       layout "packed"   — the same, with one (N, 8) int32 input record and
                           one (N, 16) output record per lane
                           (wave_pallas.py:1457);
-      layout "lanepack" — two W=64 lanes per 128-thread block, each half on
-                          its own named barrier (wave_pallas.py:1413);
+      layout "lanepack" — the plain kernel at W=64, one 64-thread block
+                          per lane (wave_pallas.py:1413, where two W=64
+                          lanes share a 128-row tile);
   * ``wave_lanes_ref`` — the plain PyTorch version of all three: a Python
     loop over waves over a (N, W) lane batch with masks for finished lanes,
     a snake step that gathers SS columns per slot, and floor division/modulo
@@ -595,10 +596,7 @@ def bind(lib):
     tail = [P, P, P]                  # out, pool, stream
     lib.wave_lanes_launch.argtypes = [P] * 6 + seqargs + [I] * 9 + tail
     lib.wave_lanes_packed_launch.argtypes = [P] + seqargs + [I] * 9 + tail
-    lib.wave_lanes_lanepack_launch.argtypes = [P] * 6 + seqargs + [I] * 8 \
-        + tail
-    for fn in (lib.wave_lanes_launch, lib.wave_lanes_packed_launch,
-               lib.wave_lanes_lanepack_launch):
+    for fn in (lib.wave_lanes_launch, lib.wave_lanes_packed_launch):
         fn.restype = ctypes.c_int
     lib.wave_error_string.restype = ctypes.c_char_p
     lib.wave_error_string.argtypes = [I]
@@ -698,15 +696,12 @@ def _launch(ins, A, B, ts, pave, msc, dsc, W, P, reverse, max_waves, layout,
         scal = (int(reverse), int(ts), int(pave), int(msc), int(dsc),
                 int(max_waves))
         tail = (out.data_ptr(), pool.data_ptr(), stream)
-        if layout == "plain":
-            rc = lib.wave_lanes_launch(*[t.data_ptr() for t in ins],
-                                       *seqargs, n, W, P, *scal, *tail)
-        elif layout == "packed":
+        if layout == "packed":
             rc = lib.wave_lanes_packed_launch(record.data_ptr(), *seqargs, n,
                                               W, P, *scal, *tail)
-        else:
-            rc = lib.wave_lanes_lanepack_launch(
-                *[t.data_ptr() for t in ins], *seqargs, n, P, *scal, *tail)
+        else:   # plain, and lanepack: the plain kernel at W=64
+            rc = lib.wave_lanes_launch(*[t.data_ptr() for t in ins],
+                                       *seqargs, n, W, P, *scal, *tail)
         if rc != 0:
             raise RuntimeError(f"wave_lanes: {layout} kernel launch failed: "
                                + lib.wave_error_string(rc).decode())

@@ -9,7 +9,7 @@ the JAX placement).  A lane that needs a base outside its windows is flagged
 as overflowed; the engine re-runs such lanes on the classic kernel.  On
 every lane that it does not flag, the result equals ``wave_lanes``'.
 
-Three hand-written kernels with one contract, all in
+Three layouts with one contract over the hand-written kernels of
 ``csrc/wave_persistent.cu`` (see the note at the top of that file), built
 with nvcc at first use into ``build/torch_kernels/libwave_persistent.so``:
 
@@ -17,12 +17,13 @@ with nvcc at first use into ``build/torch_kernels/libwave_persistent.so``:
     in shared memory (TPU kernel: wave_pallas.py:2104);
   * layout "packed"   — the same, with one (N, 8) int32 input record and
     one (N, 16) output record per lane (wave_pallas.py:2031);
-  * layout "lanepack" — two W=64 lanes per 128-thread block, each half on
-    its own named barrier (wave_pallas.py:1981).
+  * layout "lanepack" — the plain kernel, one block of W=64 threads per
+    lane (wave_pallas.py:1981, where two lanes share a row).
 
 Each kernel has a shared-memory route and a route that reads the same
 window in place from global memory, for windows too large for a block's
-shared memory; the wrapper picks by size unless told (``window_in_smem``).
+shared memory (one lane's two windows, 2L bytes, in every layout); the
+wrapper picks by size unless told (``window_in_smem``).
 
 ``wave_lanes_persistent_ref`` is the plain PyTorch version of all three:
 ``wave_lanes_ref`` with window readers.  The wrapper takes it only for
@@ -58,13 +59,16 @@ def window_length(max_alen: int) -> int:
     return max(2048, pow2ceil(int(max_alen) + 2 * MARGIN))
 
 
-def window_bytes(L: int, layout: str) -> int:
-    """Shared memory the windows of one block take."""
-    return (4 if layout == "lanepack" else 2) * int(L)
+def window_bytes(L: int) -> int:
+    """Shared memory the windows of one block take: one lane's A and B
+    windows, in every layout."""
+    return 2 * int(L)
 
 
-def window_fits_smem(L: int, layout: str) -> bool:
-    return window_bytes(L, layout) + SMEM_STATIC <= SMEM_PER_BLOCK
+def window_fits_smem(L: int) -> bool:
+    """Whether a block's windows fit its shared memory beside the body's
+    static state: the shared-memory route's condition."""
+    return window_bytes(L) + SMEM_STATIC <= SMEM_PER_BLOCK
 
 
 def persistent_windows(abase, bbase, mida, k0, LA, LB, L, reverse):
@@ -143,11 +147,8 @@ def bind(lib):
         [P] * 8 + seqargs + [I] * 11 + tail
     lib.wave_persistent_packed_launch.argtypes = \
         [P] + seqargs + [I] * 11 + tail
-    lib.wave_persistent_lanepack_launch.argtypes = \
-        [P] * 8 + seqargs + [I] * 10 + tail
     for fn in (lib.wave_persistent_launch,
-               lib.wave_persistent_packed_launch,
-               lib.wave_persistent_lanepack_launch):
+               lib.wave_persistent_packed_launch):
         fn.restype = ctypes.c_int
     lib.wave_persistent_error_string.restype = ctypes.c_char_p
     lib.wave_persistent_error_string.argtypes = [I]
@@ -186,16 +187,12 @@ def _launch(ins, A, B, consts, W, P, L, reverse, layout, smem, max_waves,
         scal = [int(reverse), int(smem)] + [int(c) for c in consts] \
             + [int(max_waves)]
         tail = (out.data_ptr(), pool.data_ptr(), stream)
-        if layout == "plain":
-            rc = lib.wave_persistent_launch(
-                *[t.data_ptr() for t in ins], *seqargs, n, W, P, L, *scal,
-                *tail)
-        elif layout == "packed":
+        if layout == "packed":
             rc = lib.wave_persistent_packed_launch(
                 record.data_ptr(), *seqargs, n, W, P, L, *scal, *tail)
-        else:
-            rc = lib.wave_persistent_lanepack_launch(
-                *[t.data_ptr() for t in ins], *seqargs, n, P, L, *scal,
+        else:   # plain, and lanepack: the plain kernel
+            rc = lib.wave_persistent_launch(
+                *[t.data_ptr() for t in ins], *seqargs, n, W, P, L, *scal,
                 *tail)
         if rc != 0:
             raise RuntimeError(
@@ -244,7 +241,7 @@ def wave_lanes_persistent(abase, bbase, mida, k0, aoffp, boffp, A, B, ts,
     if awst is None:
         awst, bwst = persistent_windows(abase, bbase, mida, k0, A.shape[0],
                                         B.shape[0], L, reverse)
-    smem = (window_fits_smem(L, layout) if window_in_smem is None
+    smem = (window_fits_smem(L) if window_in_smem is None
             else bool(window_in_smem))
     win = () if record is not None else (awst, bwst)
     return _launch(ins + win, A, B, (ts, pave, msc, dsc), W, P, int(L),

@@ -6,12 +6,13 @@ Builds ``csrc/wave.cu`` and ``csrc/wave_persistent.cu`` with
 ``-DWAVE_SECTION_CLOCKS`` (see the section clocks of ``csrc/wave_body.cuh``)
 into ``build/torch_kernels/lib*_clocks.so`` and runs chip smoke's phase-3
 lanes through them, 128 lanes of 3-9 kb reads at ~15% error from
-``--seed``: the classic plain kernel at W=128 and W=64, the classic
-lane-packed kernel (W=64, half-block barrier) and the persistent plain
-kernel (W=64, windows in shared memory), each in both directions.  In each
-case the clocked build's outputs must equal the default build's; one
-launch gives every lane's cycles per section; both builds are timed (median
-of 7 launches, CUDA events); and a timed spin of known cycles gives the SM
+``--seed``: the classic plain kernel at W=128 and W=64 and the persistent
+plain kernel (W=64, windows in shared memory), each in both directions.
+The lane-packed layouts run these W=64 kernels (one lane a 64-thread
+block), so the two W=64 cases clock rows 3 and 6 too.  In each case the
+clocked build's outputs must equal the default build's; one launch gives
+every lane's cycles per section; both builds are timed (median of 7
+launches, CUDA events); and a timed spin of known cycles gives the SM
 clock.  Per case it prints, for the lane with the most waves (the one that
 sets a launch's time), ns per wave in each section and their sum, beside
 the measured ns per wave (the default build's ms over that lane's waves);
@@ -33,9 +34,9 @@ from .probe_run import card, emit, open_card, out_file
 # the sections of csrc/wave_body.cuh, in its SEC_* order
 SECTIONS = ("prologue", "store", "pick", "snake", "round_a", "drops",
             "trigger", "round_b", "clip", "tail")
-# (mode, layout, W); lanepack runs on the half-block barrier
+# (mode, layout, W); every case runs one lane a block
 CASES = (("classic", "plain", 128), ("classic", "plain", 64),
-         ("classic", "lanepack", 64), ("persistent", "plain", 64))
+         ("persistent", "plain", 64))
 P = 512             # the pool bucket of <=9 kb reads
 SPIN_CYCLES = 100_000_000
 LEAD_CYCLES = 20_000_000
@@ -203,7 +204,6 @@ def main(argv=None) -> int:
                 hz = _sm_hz(torch)
                 acc = summarize(clocks, out["waves"].cpu().numpy(), hz)
                 rec = {"mode": mode, "layout": layout, "W": W,
-                       "barrier": "half" if layout == "lanepack" else "block",
                        "dir": "rev" if reverse else "fwd", "lanes": n,
                        "ms": ms, "ms_clocked": ms_clk,
                        "measured_ns_per_wave": 1e6 * ms / acc["waves"],

@@ -20,9 +20,10 @@ from damapper_tpu_torch.ops.wave_cuda import (IN_FIELDS, LAYOUTS, OUT_FIELDS,
                                               wave_lanes_ref)
 from damapper_tpu_torch.ops.wave_persistent import (
     persistent_windows, wave_lanes_persistent, wave_lanes_persistent_ref,
-    window_length)
+    window_fits_smem, window_length)
 from damapper_tpu_torch.utils.sim import (make_adversarial_lane_cases,
-                                          make_lane_cases)
+                                          make_lane_cases,
+                                          make_long_lane_cases)
 
 SPEC = new_align_spec(0.85, 100, [.25, .25, .25, .25], True)
 CONSTS = (SPEC.trace_space, SPEC.ave_path, SPEC.mscore, SPEC.dscore)
@@ -129,6 +130,104 @@ def test_wave_kernels_match_plain_version_on_adversarial_lanes(cuda_device,
                                                 layout=layout,
                                                 window_in_smem=smem), r,
                           len(insts))
+
+
+# the plain version's results, once per lane set and direction
+_REFS = {}
+
+
+def _lanepack_set(name):
+    """(seqmem, insts, copies, P) of a lane-packed test set: n<N> is N lanes
+    of 0.3-2.5 kb reads (1,024: 128 of them 8 times over), "apart" lanes of
+    0.2-6 kb reads that end hundreds of waves apart, "adversarial" the
+    adversarial set, "miss" 3-9 kb reads (run against 2,048-base windows),
+    "long" 40-45 kb reads (65,536-base windows, a 2,048-row pool)."""
+    if name.startswith("n"):
+        n = int(name[1:])
+        base = min(n, 128)
+        seqmem, insts = make_lane_cases(2000 + n, base, err=0.15, mix=True,
+                                        rmin=300)
+        return seqmem, insts, n // base, P
+    if name == "apart":
+        return (*make_lane_cases(3000, 9, rlen=6000, rmin=200, mix=True,
+                                 err=0.15), 1, P)
+    if name == "adversarial":
+        return (*make_adversarial_lane_cases(7), 1, P)
+    if name == "miss":
+        return (*make_lane_cases(1000, 33, glen=200_000, rlen=9000,
+                                 rmin=3000, mix=True, err=0.15), 1, P)
+    seqmem, insts, _ = make_long_lane_cases(1002, 8)
+    return seqmem, insts, 1, 2048
+
+
+def _tile(d, copies, fields):
+    return {f: (v.repeat(copies, *[1] * (v.dim() - 1)) if f in fields
+                else v) for f, v in d.items()}
+
+
+def _lanepack_ref(name, reverse, L, dev):
+    """The set's lanes (each copy), its plain version's result (tiled) and
+    its pool size, for the classic kernel (L None) or the persistent one."""
+    key = (name, reverse, L)
+    if key not in _REFS:
+        seqmem, insts, copies, Pn = _lanepack_set(name)
+        lanes = lanes_from_numpy(insts, seqmem, dev, L=L, reverse=reverse)
+        args = dict(ts=CONSTS[0], pave=CONSTS[1], msc=CONSTS[2],
+                    dsc=CONSTS[3], W=64, P=Pn, reverse=reverse)
+        r = (wave_lanes_ref(**lanes, **args) if L is None else
+             wave_lanes_persistent_ref(**lanes, **args, L=L))
+        fields = IN_FIELDS + ("awst", "bwst")
+        _REFS[key] = (_tile(lanes, copies, fields),
+                      _tile(r, copies, (*OUT_FIELDS, "pool")), args)
+    return _REFS[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("name", ["n1", "n7", "n33", "n1024", "apart",
+                                  "adversarial"])
+def test_lanepack_kernels_match_plain_version(cuda_device, name, reverse):
+    """Rows 3 and 6 (one lane a 64-thread block) equal their plain versions
+    at 1, 7, 33 and 1,024 lanes, on lanes of one launch that end hundreds
+    of waves apart, and on the adversarial set (drop trips, clips); row 6
+    by both window routes."""
+    lanes, r, args = _lanepack_ref(name, reverse, None, cuda_device)
+    if name == "apart" and not reverse:
+        assert int(r["waves"].max() - r["waves"].min()) > 200
+    k = wave_lanes(**lanes, **args, layout="lanepack")
+    torch.cuda.synchronize()
+    _assert_equal(k, r, int(r["waves"].shape[0]))
+    _, insts, _, _ = _lanepack_set(name)
+    L = window_length(max(s["blen"] for s in insts))
+    lanes, r, args = _lanepack_ref(name, reverse, L, cuda_device)
+    for smem in (True, False):
+        k = wave_lanes_persistent(**lanes, **args, L=L, layout="lanepack",
+                                  window_in_smem=smem)
+        torch.cuda.synchronize()
+        _assert_equal(k, r, int(r["waves"].shape[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("name,L", [("miss", 2048), ("long", 65536)])
+def test_lanepack_persistent_windows(cuda_device, name, L, reverse):
+    """Row 6 on window misses (3-9 kb reads against 2,048-base windows: the
+    kernel flags them as its plain version does) and on 40-45 kb reads,
+    whose 65,536-base windows (128 KB a lane) now take the shared-memory
+    route by default; the classic row 3 on the long reads too."""
+    lanes, r, args = _lanepack_ref(name, reverse, L, cuda_device)
+    if name == "miss":
+        assert bool(r["overflow"].any())
+    assert window_fits_smem(L)
+    for smem in (None, False):
+        k = wave_lanes_persistent(**lanes, **args, L=L, layout="lanepack",
+                                  window_in_smem=smem)
+        torch.cuda.synchronize()
+        _assert_equal(k, r, int(r["waves"].shape[0]))
+    if name == "long":
+        lanes, r, args = _lanepack_ref(name, reverse, None, cuda_device)
+        _assert_equal(wave_lanes(**lanes, **args, layout="lanepack"), r,
+                      int(r["waves"].shape[0]))
 
 
 PROBE_CASES = [(64, "block"), (64, "half"), (128, "block")]

@@ -398,13 +398,28 @@ def test_round_b_packed_prune_key(W):
 
 def test_source_note_names_the_round_barriers():
     """The source note names each round by its line; those lines hold the
-    barrier (round 0) or a Rounds::meet."""
+    barrier (round 0) or a Rounds::meet, which meets at the block barrier.
+    Every wave kernel, the lane-packed rows' too, meets there: the named
+    half-block barrier (HalfBar, bar.sync id, 64) and the lane-packed
+    kernels that ran on it are gone, and only the probes keep it, beside
+    the block barrier, to price them."""
     lines = BODY.splitlines()
     note = dict(re.findall(r"round (0|A|B) \(:(\d+)\)", BODY))
     assert set(note) == {"0", "A", "B"}
-    assert "bar.sync()" in lines[int(note["0"]) - 1]
+    assert "__syncthreads()" in lines[int(note["0"]) - 1]
     for r in "AB":
         assert "rd.meet(" in lines[int(note[r]) - 1], r
+    meet = BODY[BODY.index("const int4* meet(int4 r0, int4 r1)"):]
+    assert "__syncthreads();" in meet[:meet.index("\n  }")]
+    csrc = pathlib.Path(__file__).resolve().parent.parent \
+        / "damapper_tpu_torch" / "csrc"
+    for f in ("wave.cu", "wave_persistent.cu", "wave_body.cuh"):
+        text = (csrc / f).read_text()
+        for gone in ("HalfBar", "bar.sync %0, 64", "_lp_kernel"):
+            assert gone not in text, (f, gone)
+    probes = (csrc / "probes.cu").read_text()
+    assert "struct BlockBar" in probes and "struct HalfBar" in probes
+    assert "bar.sync %0, 64;" in probes
 
 
 # ---------------------------------------------------------------------------
