@@ -23,12 +23,15 @@ ends with {"ok": false, "phase": <the phase>, "error": <the exception>}:
                 at W=128 (the card's band) and W=64, lanepack (one lane a
                 64-thread block) at W=64, and all three at W=64 on 8 lanes
                 of 40-45 kb reads; the three persistent kernels at W=64 on
-                the same sets (the long reads at L=65536: 128 KB of windows
-                a lane, in shared memory in every layout) and on the 3-9 kb
-                reads with a window too small for them (misses), on the 3-9
-                kb reads, the long reads and the adversarial set by both
-                window routes.  Each launch prints its time and ns per wave
-                of its longest lane.
+                the same sets (the long reads at L=65536), on the 3-9 kb
+                reads with a window too small for them (misses), on a
+                sequence memory that is a view at byte offset 7 (no bulk
+                copy) and on 131,072-base windows that run past the
+                memory's end, each with the shipped ring of window chunks,
+                and on the reads, long, adversarial and past-the-end sets
+                with one 128-byte slot a window too; the lanes an SM holds
+                at L = 16,384 and 65,536.  Each launch prints its time and
+                ns per wave of its longest lane.
                 Then the three op-cost probe kernels (csrc/probes.cu, the
                 loops of tools/mosaic_{floor,ops,carry}.py): every pattern
                 against its plain version on seeded int32 inputs at G=9,
@@ -377,15 +380,15 @@ def phase_kernel(torch, seed):
 
 def phase_persistent_kernels(torch, seed):
     """The three persistent kernels against their one plain version.  The
-    plain version runs once per set and direction; all layouts and routes
-    are held against that one run."""
+    plain version runs once per set and direction; all layouts and ring
+    geometries are held against that one run."""
     phase("3 kernel vs plain version: persistent")
     from damapper_tpu_torch.convert import lanes_from_numpy
     from damapper_tpu_torch.ops.spec import new_align_spec
     from damapper_tpu_torch.ops.wave_cuda import IN_FIELDS, pack_record
     from damapper_tpu_torch.ops.wave_persistent import (
-        KERNEL_NAMES, LAYOUTS, wave_lanes_persistent,
-        wave_lanes_persistent_ref, window_fits_smem, window_length)
+        KERNEL_NAMES, LAYOUTS, lanes_per_sm, ring_bytes,
+        wave_lanes_persistent, wave_lanes_persistent_ref, window_length)
     from damapper_tpu_torch.utils.sim import (make_adversarial_lane_cases,
                                               make_lane_cases,
                                               make_long_lane_cases)
@@ -395,6 +398,13 @@ def phase_persistent_kernels(torch, seed):
                   dsc=spec.dscore)
     W, P = 64, 512
     dev = torch.device("cuda")
+    for lay in ("plain", "packed"):
+        print(f"{KERNEL_NAMES[lay]}: {ring_bytes()} bytes of ring a lane, "
+              f"lanes an SM (fwd, rev) at L = 16,384: "
+              f"{lanes_per_sm(16384, lay, False)}, "
+              f"{lanes_per_sm(16384, lay, True)}; at L = 65,536: "
+              f"{lanes_per_sm(65536, lay, False)}, "
+              f"{lanes_per_sm(65536, lay, True)}")
 
     def with_L(cases):
         seqmem, insts = cases
@@ -403,6 +413,8 @@ def phase_persistent_kernels(torch, seed):
     reads = with_L(make_lane_cases(seed, 128, glen=200_000, rlen=9000,
                                    rmin=3000, mix=True, err=0.15))
     long_ = make_long_lane_cases(seed + 2, 8)
+    past = make_lane_cases(seed + 3, 33, glen=60_000, rlen=6000, rmin=300,
+                           mix=True, err=0.15)
     sets = {
         "reads": reads,
         "ends": with_L(make_lane_cases(seed + 1, 32, glen=9400, rlen=9000,
@@ -412,8 +424,16 @@ def phase_persistent_kernels(torch, seed):
         # the same reads against windows too small for them
         "miss": (reads[0], reads[1], 2048),
         "adversarial": with_L(make_adversarial_lane_cases(seed)),
+        # a sequence memory that is a view at byte offset 7 (not 16-byte
+        # aligned: no bulk copy, every read in place)
+        "unaligned": with_L(make_lane_cases(seed + 4, 32, err=0.15,
+                                            mix=True, rmin=300)),
+        # windows of 131,072 bases over a memory of a length no multiple
+        # of 16: their tails run past its end
+        "past": (np.concatenate([past[0], np.full(7, 4, np.uint8)]),
+                 past[1], 131072),
     }
-    per = {lay: {"ms": [], "ms_global": [], "bound_ms": [], "bound_by": [],
+    per = {lay: {"ms": [], "ms_ring128": [], "bound_ms": [], "bound_by": [],
                  "max_abs_err": 0} for lay in LAYOUTS}
     plain_ms = []
     for nm, (seqmem, insts, L, *pool) in sets.items():
@@ -422,6 +442,13 @@ def phase_persistent_kernels(torch, seed):
             d = "rev" if reverse else "fwd"
             lanes = lanes_from_numpy(insts, seqmem, dev, L=L,
                                      reverse=reverse)
+            if nm == "unaligned":
+                base = torch.full((len(seqmem) + 16,), 4, dtype=torch.uint8,
+                                  device=dev)
+                view = base[7:7 + len(seqmem)]
+                view.copy_(lanes["A"])
+                check(view.data_ptr() % 16 != 0, "the view is aligned")
+                lanes["A"] = lanes["B"] = view
             args = dict(consts, W=W, P=Pn, L=L, reverse=reverse)
             torch.cuda.synchronize()
             t0 = time.time()
@@ -438,31 +465,33 @@ def phase_persistent_kernels(torch, seed):
                     f"{pms:.1f} ms, overflow {int(r['overflow'].sum())}, "
                     f"waves max {wmax}"]
             for lay in LAYOUTS:
-                # both routes on the reads and long sets (where the windows
-                # fit shared memory), the default route elsewhere
-                fits = window_fits_smem(L)
-                routes = ((True, False) if fits else (False,)) \
-                    if nm in ("reads", "long", "adversarial") else (fits,)
-                for smem in routes:
-                    kw = dict(layout=lay, window_in_smem=smem)
+                # the shipped ring everywhere, and one 128-byte slot a
+                # window (an advance at every chunk edge, long runs past
+                # the ring) on the reads, long, adversarial and past sets
+                rings = ((None, (128, 1)) if nm in ("reads", "long",
+                                                    "adversarial", "past")
+                         else (None,))
+                for ring in rings:
+                    kw = dict(layout=lay, ring=ring)
                     if lay == "packed":
                         kw["record"] = rec
                     ms, k = _cuda_ms(torch, lambda: wave_lanes_persistent(
                         **lanes, **args, **kw))
                     if nm == "reads":
-                        per[lay]["ms" if smem else "ms_global"].append(ms)
+                        per[lay]["ms" if ring is None
+                                 else "ms_ring128"].append(ms)
                     bad, err = _mismatch(torch, k, r)
                     per[lay]["max_abs_err"] = max(per[lay]["max_abs_err"],
                                                   err)
-                    route = "smem" if smem else "global"
-                    line.append(f"  {lay}/{route}: {ms:.4f} ms, "
+                    geo = "ring" if ring is None else f"ring{ring}"
+                    line.append(f"  {lay}/{geo}: {ms:.4f} ms, "
                                 f"{1e6 * ms / wmax:.1f} ns per wave of the "
                                 f"longest lane, mismatching lanes "
                                 f"{sum(bad.values())}")
                     check(not any(bad.values()),
-                          f"persistent {lay} kernel ({route}) and plain "
+                          f"persistent {lay} kernel ({geo}) and plain "
                           f"version differ on {nm} {d}: {bad}")
-                    if nm == "reads" and smem:
+                    if nm == "reads" and ring is None:
                         bms, bby = _bound(lanes, k)
                         per[lay]["bound_ms"].append(bms)
                         per[lay]["bound_by"].append(bby)
@@ -470,9 +499,9 @@ def phase_persistent_kernels(torch, seed):
     out = {}
     for lay in LAYOUTS:
         q = per[lay]
-        print(f"{KERNEL_NAMES[lay]}: smem route {np.mean(q['ms']):.4f} ms "
-              f"(fwd, rev {q['ms'][0]:.4f}, {q['ms'][1]:.4f}), global route "
-              f"{np.mean(q['ms_global']):.4f} ms, bound "
+        print(f"{KERNEL_NAMES[lay]}: {np.mean(q['ms']):.4f} ms (fwd, rev "
+              f"{q['ms'][0]:.4f}, {q['ms'][1]:.4f}), one 128-byte slot "
+              f"{np.mean(q['ms_ring128']):.4f} ms, bound "
               f"{np.mean(q['bound_ms']):.6f} ms ({q['bound_by'][0]})")
         out[lay] = dict(max_abs_err=q["max_abs_err"],
                         ms=float(np.mean(q["ms"])),

@@ -17,21 +17,24 @@
 //
 //   Seq  — sequence access: achar(i, miss) / bchar(i, miss) give the byte at
 //          global index i of the A / B sequence memory; awalk<REV>(i) /
-//          bwalk<REV>(i) a WordWalk from i that gives 8 consecutive bases a
-//          step in the walk's direction; amiss(i) / bmiss(i) whether i lies
-//          outside the lane's window.  ClassicSeq reads global memory and
-//          gives the sentinel 4 outside [0, len).  WindowSeq<SMEM> reads the
-//          lane's window [wst, wst + L), staged in shared memory (SMEM) or
-//          read in place from global memory; bytes of the window past the
-//          end of the sequence memory read 4, and an index outside the
-//          window reads 4 and is a miss.  A windowed lane that needs such a
-//          byte is flagged as overflowed and stops at the end of that wave;
-//          a byte is needed when the snake stops on it (the B byte, and the
-//          A byte when the B byte is a base) or when the REACH rest test
-//          reads it.
+//          bwalk<REV>(i) a WordWalk (or a walk with its contract) from i
+//          that gives 8 consecutive bases a step in the walk's direction;
+//          amiss(i) / bmiss(i) whether i lies outside the lane's window;
+//          advance(d, fa, fb), called by every thread after round B of wave
+//          d with the A and B index of the band's best point, lets a policy
+//          move what it caches.  ClassicSeq reads global memory, gives the sentinel 4
+//          outside [0, len) and caches nothing.  wave_persistent.cu's
+//          RingSeq reads the lane's window [wst, wst + L) through a ring
+//          of shared-memory chunks; bytes of the window past the end of the
+//          sequence memory read 4, and an index outside the window reads 4
+//          and is a miss.  A windowed lane that needs such a byte is
+//          flagged as overflowed and stops at the end of that wave; a byte
+//          is needed when the snake stops on it (the B byte, and the A byte
+//          when the B byte is a base) or when the REACH rest test reads it.
 //
-// With ClassicSeq the window tests compile away.  The lane-input layouts
-// (SplitIO, PackedIO) at the end serve both files' kernels.
+// With ClassicSeq the window tests and the hook compile away.  The
+// lane-input layouts (SplitIO, PackedIO) at the end serve both files'
+// kernels.
 //
 // A wave is bound by its latency: the band's longest snake, then the
 // barriers its slots meet at.  So the snake compares 8 bases per pair of
@@ -40,21 +43,18 @@
 // at the first in walk order; only the stop's index is tested for a window
 // miss), and a wave on the common path (no clip, no drop trip) meets at
 // three barriers:
-//   round 0 (:579): the band into shared memory for pick3;
-//   round A (:734): after the snake, the clip and window votes, the
+//   round 0 (:524): the band into shared memory for pick3;
+//   round A (:679): after the snake, the clip and window votes, the
 //     first drop test with the ranks of its trip, the trigger scan's warp
 //     totals (the scan runs in slot order, segmented at the ring's wrap)
 //     and each warp's best (c, rel), which give bandc and kstar;
-//   round B (:872): lastc and the band prune's hi_rel and lo_rel
+//   round B (:817): lastc and the band prune's hi_rel and lo_rel
 //     (one packed key under a per-halfword max).  Warp-wide maxima,
 //     minima and sums are one redux.sync each.
-// A drop trip adds one round (:808: the next trip's test and ranks), a
+// A drop trip adds one round (:753: the next trip's test and ranks), a
 // clipped wave its ten clip reductions (one round each, Rounds::reduce)
-// and a re-prune of the post-clip band (:930).  The rounds alternate
-// two record buffers, so no barrier only guards a buffer's reuse.  The
-// staged windows of wave_persistent.cu need no padding: a walk loads a
-// word whole only inside the window's bytes and reads the rest byte by
-// byte.
+// and a re-prune of the post-clip band (:876).  The rounds alternate
+// two record buffers, so no barrier only guards a buffer's reuse.
 
 #pragma once
 
@@ -102,9 +102,8 @@ __device__ __forceinline__ int floormod(int a, int b) {
 // made launches 2-8% slower on the H100).  A word is loaded
 // whole only when it lies inside [0, len): a word that crosses an end (or
 // lies outside) is read byte by byte, so no read leaves the allocation and
-// the sequence memory needs no slack.  GLOBAL: base is in global memory
-// (__ldg), else in shared memory.
-template <bool REV, bool GLOBAL>
+// the sequence memory needs no slack.  base is in global memory (__ldg).
+template <bool REV>
 struct WordWalk {
   const uint8_t* base;
   long long len;
@@ -113,19 +112,16 @@ struct WordWalk {
   uint64_t w0, w1;    // the words at q and q + 8
 
   __device__ __forceinline__ uint64_t load(long long i) const {
-    if (i >= 0 && i <= len - 8) {
-      const uint64_t* w = reinterpret_cast<const uint64_t*>(base + i);
-      return GLOBAL ? (uint64_t)__ldg(
-                          reinterpret_cast<const unsigned long long*>(w))
-                    : *w;
-    }
+    if (i >= 0 && i <= len - 8)
+      return (uint64_t)__ldg(
+          reinterpret_cast<const unsigned long long*>(base + i));
     uint64_t w = 0;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const long long r = i + j;
       const uint64_t b =
           (unsigned long long)r < (unsigned long long)len
-              ? (uint64_t)(GLOBAL ? __ldg(base + r) : base[r])
+              ? (uint64_t)__ldg(base + r)
               : 4;
       w |= b << (8 * j);
     }
@@ -186,71 +182,20 @@ struct ClassicSeq {
                                                           : 4;
   }
   template <bool REV>
-  __device__ __forceinline__ WordWalk<REV, true> awalk(long long i) const {
-    WordWalk<REV, true> w{A, LA};
+  __device__ __forceinline__ WordWalk<REV> awalk(long long i) const {
+    WordWalk<REV> w{A, LA};
     w.start(i);
     return w;
   }
   template <bool REV>
-  __device__ __forceinline__ WordWalk<REV, true> bwalk(long long i) const {
-    WordWalk<REV, true> w{B, LB};
+  __device__ __forceinline__ WordWalk<REV> bwalk(long long i) const {
+    WordWalk<REV> w{B, LB};
     w.start(i);
     return w;
   }
   __device__ __forceinline__ bool amiss(long long) const { return false; }
   __device__ __forceinline__ bool bmiss(long long) const { return false; }
-};
-
-template <bool SMEM>
-struct WindowSeq {
-  static constexpr bool kWindowed = true;
-  // SMEM: the staged window bytes; else the sequence memory at the window
-  // start.  valid*: how many window bytes lie in the sequence memory (the
-  // rest read 4; a staged window holds the 4s itself, so there it is L)
-  const uint8_t* wa;
-  const uint8_t* wb;
-  long long awst, bwst;
-  long long valida, validb;
-  int L;
-
-  __device__ __forceinline__ int get(const uint8_t* w, long long r,
-                                     long long valid, int& miss) const {
-    if ((unsigned long long)r >= (unsigned long long)L) {
-      miss = 1;
-      return 4;
-    }
-    if (SMEM) return w[r];
-    return r < valid ? (int)__ldg(w + r) : 4;
-  }
-  __device__ __forceinline__ int achar(long long i, int& miss) const {
-    return get(wa, i - awst, valida, miss);
-  }
-  __device__ __forceinline__ int bchar(long long i, int& miss) const {
-    return get(wb, i - bwst, validb, miss);
-  }
-  // the walks read the window's bytes that lie in the sequence memory; the
-  // rest, inside or outside the window, read 4
-  template <bool REV>
-  __device__ __forceinline__ WordWalk<REV, !SMEM> walk(
-      const uint8_t* w, long long r, long long valid) const {
-    WordWalk<REV, !SMEM> ww{w, valid < L ? (valid > 0 ? valid : 0) : L};
-    ww.start(r);
-    return ww;
-  }
-  template <bool REV>
-  __device__ __forceinline__ WordWalk<REV, !SMEM> awalk(long long i) const {
-    return walk<REV>(wa, i - awst, valida);
-  }
-  template <bool REV>
-  __device__ __forceinline__ WordWalk<REV, !SMEM> bwalk(long long i) const {
-    return walk<REV>(wb, i - bwst, validb);
-  }
-  __device__ __forceinline__ bool amiss(long long i) const {
-    return (unsigned long long)(i - awst) >= (unsigned long long)L;
-  }
-  __device__ __forceinline__ bool bmiss(long long i) const {
-    return (unsigned long long)(i - bwst) >= (unsigned long long)L;
-  }
+  __device__ __forceinline__ void advance(int, long long, long long) const {}
 };
 
 // ---------------------------------------------------------------------------
@@ -880,6 +825,7 @@ __device__ __forceinline__ void wave_lane(const LaneIn in, const Seq& seq,
       prune = __vmaxu2(prune, (unsigned)rbb[2 * i].y);
     }
     if (lastc != fill) lasta = lastc;
+    seq.advance(dif, abase + (long long)(besta - besty), bbase + besty);
     WCLK(SEC_ROUND_B);
 
     // boundary clip + REACH grab, then the prune on the post-clip band

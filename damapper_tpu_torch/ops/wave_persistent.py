@@ -13,17 +13,17 @@ Three layouts with one contract over the hand-written kernels of
 ``csrc/wave_persistent.cu`` (see the note at the top of that file), built
 with nvcc at first use into ``build/torch_kernels/libwave_persistent.so``:
 
-  * layout "plain"    — one thread block of W=64 threads per lane, windows
-    in shared memory (TPU kernel: wave_pallas.py:2104);
+  * layout "plain"    — one thread block of W=64 threads per lane
+    (TPU kernel: wave_pallas.py:2104);
   * layout "packed"   — the same, with one (N, 8) int32 input record and
     one (N, 16) output record per lane (wave_pallas.py:2031);
   * layout "lanepack" — the plain kernel, one block of W=64 threads per
     lane (wave_pallas.py:1981, where two lanes share a row).
 
-Each kernel has a shared-memory route and a route that reads the same
-window in place from global memory, for windows too large for a block's
-shared memory (one lane's two windows, 2L bytes, in every layout); the
-wrapper picks by size unless told (``window_in_smem``).
+Each kernel caches a lane's two windows in a ring of RING_SLOTS chunks of
+RING_CHUNK bytes a window in shared memory, filled by TMA bulk copies as the
+band's front moves, and reads what the ring does not hold in place: the
+shared memory a lane takes (``ring_bytes``) is the same for every L.
 
 ``wave_lanes_persistent_ref`` is the plain PyTorch version of all three:
 ``wave_lanes_ref`` with window readers.  The wrapper takes it only for
@@ -45,8 +45,11 @@ MARGIN = 512            # window slack on each side of the seed
 KERNEL_NAMES = {"plain": "wave_persistent",
                 "packed": "wave_persistent_packed",
                 "lanepack": "wave_persistent_lanepack"}
-SMEM_PER_BLOCK = 232448  # shared memory a block may use on sm_90 (227 KB)
-SMEM_STATIC = 8192      # room kept for the body's static shared state
+# each window's ring: RING_SLOTS chunks of RING_CHUNK bytes (powers of two,
+# a chunk 128 bytes or more, at most 32 slots), 16 KB a lane; of the
+# geometries timed on the H100 the fastest or within 1% of it (PERF.md §6)
+RING_CHUNK = 2048
+RING_SLOTS = 4
 
 
 def pow2ceil(x: int) -> int:
@@ -59,16 +62,12 @@ def window_length(max_alen: int) -> int:
     return max(2048, pow2ceil(int(max_alen) + 2 * MARGIN))
 
 
-def window_bytes(L: int) -> int:
-    """Shared memory the windows of one block take: one lane's A and B
-    windows, in every layout."""
-    return 2 * int(L)
-
-
-def window_fits_smem(L: int) -> bool:
-    """Whether a block's windows fit its shared memory beside the body's
-    static state: the shared-memory route's condition."""
-    return window_bytes(L) + SMEM_STATIC <= SMEM_PER_BLOCK
+def ring_bytes(ring=None) -> int:
+    """Dynamic shared memory a block (one lane) asks for: its A and B
+    rings, each ``slots`` chunks of ``chunk`` bytes; ring = (chunk, slots),
+    None for (RING_CHUNK, RING_SLOTS).  The same for every window length."""
+    chunk, slots = ring or (RING_CHUNK, RING_SLOTS)
+    return 2 * int(chunk) * int(slots)
 
 
 def persistent_windows(abase, bbase, mida, k0, LA, LB, L, reverse):
@@ -144,11 +143,13 @@ def bind(lib):
     seqargs = [P, LL, P, LL]
     tail = [P, P, P]                  # out, pool, stream
     lib.wave_persistent_launch.argtypes = \
-        [P] * 8 + seqargs + [I] * 11 + tail
+        [P] * 8 + seqargs + [I] * 12 + tail
     lib.wave_persistent_packed_launch.argtypes = \
-        [P] + seqargs + [I] * 11 + tail
+        [P] + seqargs + [I] * 12 + tail
+    lib.wave_persistent_occupancy.argtypes = [I] * 5 + [P]
     for fn in (lib.wave_persistent_launch,
-               lib.wave_persistent_packed_launch):
+               lib.wave_persistent_packed_launch,
+               lib.wave_persistent_occupancy):
         fn.restype = ctypes.c_int
     lib.wave_persistent_error_string.restype = ctypes.c_char_p
     lib.wave_persistent_error_string.argtypes = [I]
@@ -162,7 +163,7 @@ def _load():
     return _lib
 
 
-def _launch(ins, A, B, consts, W, P, L, reverse, layout, smem, max_waves,
+def _launch(ins, A, B, consts, W, P, L, reverse, layout, ring, max_waves,
             record):
     fn = "wave_lanes_persistent"
     if not torch.cuda.is_available():
@@ -184,8 +185,8 @@ def _launch(ins, A, B, consts, W, P, L, reverse, layout, smem, max_waves,
         lib = _load()
         stream = torch.cuda.current_stream(dev).cuda_stream
         seqargs = (A.data_ptr(), A.shape[0], B.data_ptr(), B.shape[0])
-        scal = [int(reverse), int(smem)] + [int(c) for c in consts] \
-            + [int(max_waves)]
+        scal = [int(reverse), *map(int, ring or (RING_CHUNK, RING_SLOTS))] \
+            + [int(c) for c in consts] + [int(max_waves)]
         tail = (out.data_ptr(), pool.data_ptr(), stream)
         if layout == "packed":
             rc = lib.wave_persistent_packed_launch(
@@ -206,9 +207,8 @@ def _launch(ins, A, B, consts, W, P, L, reverse, layout, smem, max_waves,
 
 def wave_lanes_persistent(abase, bbase, mida, k0, aoffp, boffp, A, B, ts,
                           pave, msc, dsc, *, W, P, L, reverse,
-                          layout="plain", window_in_smem=None,
-                          max_waves=MAX_WAVES, awst=None, bwst=None,
-                          record=None):
+                          layout="plain", ring=None, max_waves=MAX_WAVES,
+                          awst=None, bwst=None, record=None):
     """Run one wave direction for N lanes against their windows of L bases.
 
     Arguments and result as ``wave_lanes`` (int32 [N] lane inputs, uint8
@@ -216,8 +216,9 @@ def wave_lanes_persistent(abase, bbase, mida, k0, aoffp, boffp, A, B, ts,
     fields, bool ``overflow`` and the [N, P, 4] ``pool``; the packed layout
     also returns its raw (N, 16) output ``record``), plus: W, which must be
     64 on the card; L, the window length (a multiple of 128); layout, one of
-    LAYOUTS; window_in_smem, the route (None: shared memory when the windows
-    fit); awst/bwst, the window starts (None: ``persistent_windows``);
+    LAYOUTS; ring, the (chunk bytes, slots) of each window's ring (None:
+    RING_CHUNK, RING_SLOTS; the result does not depend on it); awst/bwst,
+    the window starts (None: ``persistent_windows``);
     record, for the packed layout, the lanes' ready-made (N, 8) int32 input
     record with the window starts in its last two words (``pack_record``),
     read by the kernel in place of the lane tensors.
@@ -241,11 +242,27 @@ def wave_lanes_persistent(abase, bbase, mida, k0, aoffp, boffp, A, B, ts,
     if awst is None:
         awst, bwst = persistent_windows(abase, bbase, mida, k0, A.shape[0],
                                         B.shape[0], L, reverse)
-    smem = (window_fits_smem(L) if window_in_smem is None
-            else bool(window_in_smem))
     win = () if record is not None else (awst, bwst)
     return _launch(ins + win, A, B, (ts, pave, msc, dsc), W, P, int(L),
-                   reverse, layout, smem, max_waves, record)
+                   reverse, layout, ring, max_waves, record)
+
+
+def lanes_per_sm(L, layout="plain", reverse=False, ring=None) -> int:
+    """Lanes (64-thread blocks) of the layout's kernel one SM holds at once
+    on the current card in a launch at window length L with the ring
+    geometry (None: the default), from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor; 0 where the launch would
+    refuse it."""
+    chunk, slots = ring or (RING_CHUNK, RING_SLOTS)
+    out = ctypes.c_int(0)
+    rc = _load().wave_persistent_occupancy(
+        int(layout == "packed"), int(reverse), int(L), int(chunk),
+        int(slots), ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError("wave_persistent_occupancy failed: "
+                           + _load().wave_persistent_error_string(rc)
+                           .decode())
+    return out.value
 
 
 wave_lanes_persistent.launches_plain = 0

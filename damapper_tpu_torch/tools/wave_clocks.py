@@ -7,7 +7,14 @@ Builds ``csrc/wave.cu`` and ``csrc/wave_persistent.cu`` with
 into ``build/torch_kernels/lib*_clocks.so`` and runs chip smoke's phase-3
 lanes through them, 128 lanes of 3-9 kb reads at ~15% error from
 ``--seed``: the classic plain kernel at W=128 and W=64 and the persistent
-plain kernel (W=64, windows in shared memory), each in both directions.
+plain kernel (W=64, windows through the ring of shared-memory chunks),
+each in both directions.  The persistent case also reads the ring's clocks
+(``wave_ring_clocks`` of ``csrc/wave_persistent.cu``): per lane the cycles
+from the block's start until wave 0 may read (``stage``: the ring's
+barriers set up, its first fills issued), the most cycles one of its
+threads waited for a fill (``ring_wait``: before refilling a slot, and at
+the lane's end; no read waits), and the share of its window words read
+from the ring rather than in place (``ring_share``).
 The lane-packed layouts run these W=64 kernels (one lane a 64-thread
 block), so the two W=64 cases clock rows 3 and 6 too.  In each case the
 clocked build's outputs must equal the default build's; one launch gives
@@ -80,16 +87,45 @@ def _clocked(mod, src, stem):
         raise RuntimeError(f"{so.name} counts {dims[1]} sections, this tool "
                            f"knows {len(SECTIONS)}")
     lib.clk_lanes = dims[0]
+    if hasattr(lib, "wave_ring_clocks_take"):
+        lib.wave_ring_clocks_take.argtypes = [ctypes.c_void_p]
+        lib.wave_ring_clocks_take.restype = ctypes.c_int
     return lib
 
 
 def _take(lib):
-    """The lanes' section cycles since the last take (then zeroed)."""
+    """The lanes' section cycles since the last take (then zeroed), and
+    for a ring build the lanes' (stage, ring_wait) cycles, else None."""
     buf = np.zeros((lib.clk_lanes, len(SECTIONS)), dtype=np.int64)
     rc = lib.wave_section_clocks_take(buf.ctypes.data)
     if rc != 0:
         raise RuntimeError(f"reading the section clocks failed: {rc}")
-    return buf
+    if not hasattr(lib, "wave_ring_clocks_take"):
+        return buf, None
+    ring = np.zeros((lib.clk_lanes, 4), dtype=np.uint64)
+    rc = lib.wave_ring_clocks_take(ring.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"reading the ring clocks failed: {rc}")
+    return buf, ring.astype(np.int64)
+
+
+def ring_summary(ring, lane, hz):
+    """The ring's clocks of one launch: stage and ring_wait in ns of the
+    given lane (the one with the most waves) and their median and max over
+    the lanes, and ring_share, the window words read from the ring over all
+    window words read, of that lane and of all lanes.  ring: (lanes, 4):
+    stage cycles, wait cycles, words from the ring, words in place."""
+    ns = 1e9 / hz
+    ring = np.asarray(ring, dtype=np.int64)
+    out = {f"{k}_ns": {"lane": float(ring[lane, j] * ns),
+                       "median": float(np.median(ring[:, j]) * ns),
+                       "max": float(ring[:, j].max() * ns)}
+           for j, k in enumerate(("stage", "ring_wait"))}
+    words = ring[:, 2] + ring[:, 3]
+    out["ring_share"] = {
+        "lane": float(ring[lane, 2] / max(int(words[lane]), 1)),
+        "all": float(ring[:, 2].sum() / max(int(words.sum()), 1))}
+    return out
 
 
 @contextlib.contextmanager
@@ -185,7 +221,7 @@ def main(argv=None) -> int:
                     lanes = lanes_from_numpy(insts, seqmem, dev, L=L,
                                              reverse=reverse)
                     kw = dict(consts, W=W, P=P, L=L, reverse=reverse,
-                              layout=layout, window_in_smem=True)
+                              layout=layout)
 
                     def fn():
                         return wave_persistent.wave_lanes_persistent(
@@ -195,7 +231,8 @@ def main(argv=None) -> int:
                     _take(lib)
                     out = fn()
                     torch.cuda.synchronize()
-                    clocks = _take(lib)[:n]
+                    clocks, ring = _take(lib)
+                    clocks = clocks[:n]
                     ms_clk, _ = _ms(torch, fn)
                     _take(lib)
                 if not _same(torch, out, ref):
@@ -208,6 +245,8 @@ def main(argv=None) -> int:
                        "ms": ms, "ms_clocked": ms_clk,
                        "measured_ns_per_wave": 1e6 * ms / acc["waves"],
                        "sm_hz": hz, "sm_hz_first": hz0, **acc, **info}
+                if ring is not None:
+                    rec.update(ring_summary(ring[:n], acc["lane"], hz))
                 emit(rec, fh)
                 print(f"{mode} {layout} W={W} {rec['dir']}: lane "
                       f"{acc['lane']}, {acc['waves']} waves; ns per wave "
@@ -215,7 +254,16 @@ def main(argv=None) -> int:
                                   acc["ns_per_wave"].items())
                       + f"; sum {acc['sum_ns']:.1f}, measured "
                       f"{rec['measured_ns_per_wave']:.1f} (default {ms:.4f} "
-                      f"ms, clocked {ms_clk:.4f} ms, SM {hz / 1e6:.0f} MHz)",
+                      f"ms, clocked {ms_clk:.4f} ms, SM {hz / 1e6:.0f} MHz)"
+                      + ("" if ring is None else
+                         "; ring ns: " + ", ".join(
+                             f"{k[:-3]} lane {v['lane']:.0f}, median "
+                             f"{v['median']:.0f}, max {v['max']:.0f}"
+                             for k, v in rec.items() if k in (
+                                 "stage_ns", "ring_wait_ns"))
+                         + f"; words from the ring: lane "
+                         f"{rec['ring_share']['lane']:.4f}, all "
+                         f"{rec['ring_share']['all']:.4f}"),
                       flush=True)
     finally:
         if fh is not None:

@@ -19,8 +19,8 @@ from damapper_tpu_torch.ops.wave_cuda import (IN_FIELDS, LAYOUTS, OUT_FIELDS,
                                               pack_record, wave_lanes,
                                               wave_lanes_ref)
 from damapper_tpu_torch.ops.wave_persistent import (
-    persistent_windows, wave_lanes_persistent, wave_lanes_persistent_ref,
-    window_fits_smem, window_length)
+    lanes_per_sm, persistent_windows, ring_bytes, wave_lanes_persistent,
+    wave_lanes_persistent_ref, window_length)
 from damapper_tpu_torch.utils.sim import (make_adversarial_lane_cases,
                                           make_lane_cases,
                                           make_long_lane_cases)
@@ -28,6 +28,10 @@ from damapper_tpu_torch.utils.sim import (make_adversarial_lane_cases,
 SPEC = new_align_spec(0.85, 100, [.25, .25, .25, .25], True)
 CONSTS = (SPEC.trace_space, SPEC.ave_path, SPEC.mscore, SPEC.dscore)
 P = 512
+# ring geometries (chunk bytes, slots a window) the persistent kernels are
+# held at: the shipped one (None), one 128-byte slot (every chunk edge an
+# advance, every long run past the ring), four, and sixteen 2 KB chunks
+RINGS = (None, (128, 1), (128, 4), (2048, 16))
 
 
 @pytest.fixture
@@ -75,11 +79,9 @@ def _assert_equal(k, r, n):
 def test_persistent_kernels_match_plain_version_on_card(cuda_device, reverse,
                                                         small):
     """Each persistent kernel (plain, packed, lanepack; packed also from a
-    ready-made record), on both window routes (shared memory and in place),
-    equals the plain version on the same CUDA tensors.  Seven lanes of
-    0.3-2.5 kb reads: the lane-packed blocks pair lanes that end far apart,
-    and the last block has one idle half.  L1024 is too small for the
-    longer reads: window misses."""
+    ready-made record), at every ring geometry of RINGS, equals the plain
+    version on the same CUDA tensors.  Seven lanes of 0.3-2.5 kb reads.
+    L1024 is too small for the longer reads: window misses."""
     seqmem, insts = make_lane_cases(1000, 7, err=0.15, mix=True, rmin=300)
     lanes = lanes_from_numpy(insts, seqmem, cuda_device)
     L = 1024 if small else window_length(max(s["blen"] for s in insts))
@@ -93,11 +95,11 @@ def test_persistent_kernels_match_plain_version_on_card(cuda_device, reverse,
     rec = pack_record([lanes[nm] for nm in IN_FIELDS] + [aw, bw])
     runs = [(lay, {}) for lay in LAYOUTS] + [("packed", dict(record=rec))]
     for layout, kw in runs:
-        for smem in (True, False):
+        for ring in RINGS:
             cnt = "launches_" + layout
             launches = getattr(wave_lanes_persistent, cnt)
             k = wave_lanes_persistent(**lanes, **args, layout=layout,
-                                      window_in_smem=smem, **kw)
+                                      ring=ring, **kw)
             torch.cuda.synchronize()
             assert getattr(wave_lanes_persistent, cnt) == launches + 1
             _assert_equal(k, r, len(insts))
@@ -109,7 +111,8 @@ def test_wave_kernels_match_plain_version_on_adversarial_lanes(cuda_device,
                                                                reverse):
     """All six wave kernels on the adversarial set (exact repeats, exact
     runs of 60-600 bases, seeds next to the memory's ends): the classic
-    ones at W=128 and W=64, the persistent ones by both window routes."""
+    ones at W=128 and W=64, the persistent ones at every ring geometry of
+    RINGS (the exact runs walk across chunk edges and past the ring)."""
     seqmem, insts = make_adversarial_lane_cases(7)
     lanes = lanes_from_numpy(insts, seqmem, cuda_device)
     for w in (64, 128):
@@ -125,10 +128,9 @@ def test_wave_kernels_match_plain_version_on_adversarial_lanes(cuda_device,
                 W=64, P=P, L=L, reverse=reverse)
     r = wave_lanes_persistent_ref(**lanes, **args)
     for layout in LAYOUTS:
-        for smem in (True, False):
+        for ring in RINGS:
             _assert_equal(wave_lanes_persistent(**lanes, **args,
-                                                layout=layout,
-                                                window_in_smem=smem), r,
+                                                layout=layout, ring=ring), r,
                           len(insts))
 
 
@@ -190,7 +192,7 @@ def test_lanepack_kernels_match_plain_version(cuda_device, name, reverse):
     """Rows 3 and 6 (one lane a 64-thread block) equal their plain versions
     at 1, 7, 33 and 1,024 lanes, on lanes of one launch that end hundreds
     of waves apart, and on the adversarial set (drop trips, clips); row 6
-    by both window routes."""
+    at the shipped ring and at one 128-byte slot a window."""
     lanes, r, args = _lanepack_ref(name, reverse, None, cuda_device)
     if name == "apart" and not reverse:
         assert int(r["waves"].max() - r["waves"].min()) > 200
@@ -200,9 +202,9 @@ def test_lanepack_kernels_match_plain_version(cuda_device, name, reverse):
     _, insts, _, _ = _lanepack_set(name)
     L = window_length(max(s["blen"] for s in insts))
     lanes, r, args = _lanepack_ref(name, reverse, L, cuda_device)
-    for smem in (True, False):
+    for ring in (None, (128, 1)):
         k = wave_lanes_persistent(**lanes, **args, L=L, layout="lanepack",
-                                  window_in_smem=smem)
+                                  ring=ring)
         torch.cuda.synchronize()
         _assert_equal(k, r, int(r["waves"].shape[0]))
 
@@ -213,21 +215,161 @@ def test_lanepack_kernels_match_plain_version(cuda_device, name, reverse):
 def test_lanepack_persistent_windows(cuda_device, name, L, reverse):
     """Row 6 on window misses (3-9 kb reads against 2,048-base windows: the
     kernel flags them as its plain version does) and on 40-45 kb reads,
-    whose 65,536-base windows (128 KB a lane) now take the shared-memory
-    route by default; the classic row 3 on the long reads too."""
+    whose 65,536-base windows take the same ring as short ones (the shared
+    memory a lane asks for does not grow with L); the classic row 3 on the
+    long reads too."""
     lanes, r, args = _lanepack_ref(name, reverse, L, cuda_device)
     if name == "miss":
         assert bool(r["overflow"].any())
-    assert window_fits_smem(L)
-    for smem in (None, False):
+    assert ring_bytes() <= 16 * 1024
+    for ring in (None, (128, 2)):
         k = wave_lanes_persistent(**lanes, **args, L=L, layout="lanepack",
-                                  window_in_smem=smem)
+                                  ring=ring)
         torch.cuda.synchronize()
         _assert_equal(k, r, int(r["waves"].shape[0]))
     if name == "long":
         lanes, r, args = _lanepack_ref(name, reverse, None, cuda_device)
         _assert_equal(wave_lanes(**lanes, **args, layout="lanepack"), r,
                       int(r["waves"].shape[0]))
+
+
+def _phase3_set(name):
+    """chip_smoke.py phase 3's persistent sets, seed 42: (seqmem, insts, L,
+    P).  "reads" 128 lanes of 3-9 kb reads, "ends" 32 seeds next to contig
+    ends, "long" 8 lanes of 40-45 kb reads (L = 65,536), "miss" the reads
+    against 2,048-base windows, "adversarial" the adversarial set."""
+    def with_L(cases, Pn=P):
+        seqmem, insts = cases
+        return seqmem, insts, window_length(max(s["blen"]
+                                                for s in insts)), Pn
+    if name in ("reads", "miss"):
+        seqmem, insts, L, Pn = with_L(make_lane_cases(
+            42, 128, glen=200_000, rlen=9000, rmin=3000, mix=True,
+            err=0.15))
+        return seqmem, insts, (2048 if name == "miss" else L), Pn
+    if name == "ends":
+        return with_L(make_lane_cases(43, 32, glen=9400, rlen=9000,
+                                      rmin=8500, mix=True, err=0.15))
+    if name == "long":
+        seqmem, insts, L = make_long_lane_cases(44, 8)
+        return seqmem, insts, L, 2048
+    return with_L(make_adversarial_lane_cases(42))
+
+
+def _persistent_all_layouts(lanes, args, r, n, rings=(None,)):
+    """Every layout (packed also from a ready-made record) at each ring
+    equals the plain version's result r; each launch is counted."""
+    rec = pack_record([lanes[f] for f in IN_FIELDS + ("awst", "bwst")])
+    runs = [(lay, {}) for lay in LAYOUTS] + [("packed", dict(record=rec))]
+    for layout, kw in runs:
+        for ring in rings:
+            cnt = "launches_" + layout
+            launches = getattr(wave_lanes_persistent, cnt)
+            k = wave_lanes_persistent(**lanes, **args, layout=layout,
+                                      ring=ring, **kw)
+            torch.cuda.synchronize()
+            assert getattr(wave_lanes_persistent, cnt) == launches + 1
+            _assert_equal(k, r, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("name", ["reads", "ends", "long", "miss",
+                                  "adversarial"])
+def test_persistent_kernels_on_phase3_sets(cuda_device, name, reverse):
+    """Rows 4-6 on chip smoke's phase-3 sets (the reads, seeds next to
+    contig ends, 40-45 kb reads at L = 65,536, the reads against 2,048-base
+    windows, the adversarial set), plain, packed and lane-packed at the
+    shipped ring: max abs error 0 against the plain version."""
+    seqmem, insts, L, Pn = _phase3_set(name)
+    lanes = lanes_from_numpy(insts, seqmem, cuda_device, L=L,
+                             reverse=reverse)
+    args = dict(ts=CONSTS[0], pave=CONSTS[1], msc=CONSTS[2], dsc=CONSTS[3],
+                W=64, P=Pn, L=L, reverse=reverse)
+    r = wave_lanes_persistent_ref(**lanes, **args)
+    if name == "miss":
+        assert bool(r["overflow"].any())
+    _persistent_all_layouts(lanes, args, r, len(insts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("L", [2048, 4096, 16384, 65536, 131072])
+def test_persistent_kernels_at_every_window_length(cuda_device, L, reverse):
+    """Rows 4-6 at window lengths 2,048 to 131,072 on 33 lanes of 0.3-6 kb
+    reads in a memory whose length is no multiple of 16: the windows of the
+    last reads run past the memory's end (their tail reads 4 in place), the
+    shortest windows miss; at the shipped ring and at one 128-byte slot."""
+    seqmem, insts = make_lane_cases(4000 + L // 128, 33, glen=60_000,
+                                    rlen=6000, rmin=300, mix=True, err=0.15)
+    seqmem = np.concatenate([seqmem, np.full(7, 4, np.uint8)])
+    assert len(seqmem) % 16
+    lanes = lanes_from_numpy(insts, seqmem, cuda_device, L=L,
+                             reverse=reverse)
+    args = dict(ts=CONSTS[0], pave=CONSTS[1], msc=CONSTS[2], dsc=CONSTS[3],
+                W=64, P=P, L=L, reverse=reverse)
+    r = wave_lanes_persistent_ref(**lanes, **args)
+    if L == 2048:
+        assert bool(r["overflow"].any())
+    _persistent_all_layouts(lanes, args, r, len(insts),
+                            rings=(None, (128, 1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_persistent_kernels_on_unaligned_sequence_views(cuda_device,
+                                                        reverse):
+    """Rows 4-6 on sequence memories that are views at byte offsets 1-15
+    of a larger tensor (no 16-byte alignment: no bulk copy, every read in
+    place) and at offset 16 (aligned again: the ring), against the plain
+    version on the same views."""
+    seqmem, insts = make_lane_cases(5000, 7, err=0.15, mix=True, rmin=300)
+    L = window_length(max(s["blen"] for s in insts))
+    base = torch.full((len(seqmem) + 32,), 4, dtype=torch.uint8,
+                      device=cuda_device)
+    lanes = lanes_from_numpy(insts, seqmem, cuda_device, L=L,
+                             reverse=reverse)
+    args = dict(ts=CONSTS[0], pave=CONSTS[1], msc=CONSTS[2], dsc=CONSTS[3],
+                W=64, P=P, L=L, reverse=reverse)
+    r = wave_lanes_persistent_ref(**lanes, **args)
+    for off in range(1, 17):
+        view = base[off:off + len(seqmem)]
+        view.copy_(lanes["A"])
+        assert (view.data_ptr() % 16 == 0) == (off == 16)
+        _persistent_all_layouts(dict(lanes, A=view, B=view), args, r,
+                                len(insts), rings=(None, (128, 1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_persistent_kernels_on_1024_long_lanes(cuda_device, reverse):
+    """Rows 4-6 on 1,024 lanes of 40-45 kb reads (8 lanes 128 times over,
+    L = 65,536): a launch of more long lanes than the card holds at once,
+    each taking the ring's shared memory, not its 128 KB window's."""
+    seqmem, insts, L = make_long_lane_cases(1002, 8)
+    lanes = lanes_from_numpy(insts, seqmem, cuda_device, L=L,
+                             reverse=reverse)
+    args = dict(ts=CONSTS[0], pave=CONSTS[1], msc=CONSTS[2], dsc=CONSTS[3],
+                W=64, P=2048, L=L, reverse=reverse)
+    r = wave_lanes_persistent_ref(**lanes, **args)
+    fields = IN_FIELDS + ("awst", "bwst")
+    _persistent_all_layouts(_tile(lanes, 128, fields), args,
+                            _tile(r, 128, (*OUT_FIELDS, "pool")), 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["plain", "packed"])
+def test_persistent_lanes_per_sm_do_not_fall_with_the_window(cuda_device,
+                                                             layout):
+    """The lanes an SM holds of the shipped kernel at L = 65,536 are no
+    fewer than at L = 16,384 (the ring's shared memory does not grow with
+    the window), and as many as with one 128-byte slot a window: shared
+    memory does not set them."""
+    for reverse in (False, True):
+        at = {L: lanes_per_sm(L, layout, reverse) for L in (16384, 65536)}
+        assert at[65536] >= at[16384] > 0
+        assert at[65536] == lanes_per_sm(65536, layout, reverse,
+                                         ring=(128, 1))
 
 
 PROBE_CASES = [(64, "block"), (64, "half"), (128, "block")]

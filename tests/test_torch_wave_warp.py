@@ -10,11 +10,13 @@ plain kernel at W=64).  The warp lane lost at every launch size (PERF.md
 W=64 kernels.  What ships is held here:
 
   (a) the lane-packed rows' geometry: one lane to a 64-thread block, the
-      plain kernels' launch in both directions, 2L bytes of windows a
-      block (in shared memory up to L = 65,536, the global route above),
-      and zero lanes;
-  (b) the A/B tool's cases (tools/wave_ab.py): rows 3 and 6 of a build
-      without lane-packed launchers are its plain W=64 cases, timed once.
+      plain kernels' launch in both directions, and zero lanes; and the
+      persistent rows' windows (rows 4-6): every layout's launch asks for
+      the same ring of shared-memory chunks whatever the window length L,
+      and passes its direction and L through;
+  (b) the A/B tool's cases (tools/wave_ab.py): rows 3 and 6 are the plain
+      W=64 cases, timed once, and the persistent rows are timed by each of
+      a build's routes, the long lanes at each count.
 
 The kernels themselves are held against the plain version on the card by
 tests/test_torch_cuda.py and chip_smoke.py, and the source's round notes by
@@ -67,8 +69,7 @@ def test_lanepack_rows_launch_the_plain_kernels_at_w64(monkeypatch, n):
     """The lane-packed layouts launch the plain layouts' kernels at W=64
     (one 64-thread block a lane, so any lane count fills its blocks), count
     the launch as the lane-packed row's, and launch nothing for zero
-    lanes; a long window (L = 65,536, 2L bytes a block) takes the
-    shared-memory route."""
+    lanes; a long window (L = 65,536) takes the ring of the short ones."""
     lib = _fake_card(monkeypatch, wave_cuda)
     ins, seq = _inputs(n)
     before = wave_cuda.wave_lanes.launches_lanepack
@@ -86,14 +87,14 @@ def test_lanepack_rows_launch_the_plain_kernels_at_w64(monkeypatch, n):
     lib = _fake_card(monkeypatch, wave_persistent)
     ins, seq = _inputs(n, windows=True)
     before = wave_persistent.wave_lanes_persistent.launches_lanepack
-    smem = wave_persistent.window_fits_smem(65536)
     wave_persistent._launch(ins, seq, seq, (100, 10, 1, 1), 64, 256, 65536,
-                            True, "lanepack", smem, 1 << 20, None)
+                            True, "lanepack", None, 1 << 20, None)
     if n:
         (name, args), = lib.calls
         assert name == "wave_persistent_launch"
         assert args[12:17] == (n, 64, 256, 65536, 1)
-        assert args[17] == 1       # the shared-memory route
+        assert args[17:19] == (wave_persistent.RING_CHUNK,
+                               wave_persistent.RING_SLOTS)
         assert wave_persistent.wave_lanes_persistent.launches_lanepack \
             == before + 1
     else:
@@ -101,23 +102,31 @@ def test_lanepack_rows_launch_the_plain_kernels_at_w64(monkeypatch, n):
 
 
 @pytest.mark.parametrize("L", [2048, 4096, 8192, 16384, 32768, 65536])
-def test_windows_of_a_lane_fit_shared_memory(L):
-    """One lane's A and B windows (2L bytes) and the body's static state fit
-    the 227 KB a block may use at every window length up to 65,536, in
-    every layout: the long reads' 65,536-base windows, which two lanes a
-    block pushed to the global route, now stay in shared memory."""
+def test_windows_of_a_lane_fit_shared_memory(monkeypatch, L):
+    """A lane's windows take the same shared memory at every window
+    length: each launch, plain and packed, asks for the ring geometry
+    (RING_CHUNK, RING_SLOTS), whose two rings (one a window) take 16 KB a
+    lane or less, whatever L is; an explicit ring is passed through."""
     wp = wave_persistent
-    assert wp.window_bytes(L) == 2 * L
-    assert wp.window_fits_smem(L)
-    assert not wp.window_fits_smem(2 * 65536)
+    assert wp.ring_bytes() == 2 * wp.RING_CHUNK * wp.RING_SLOTS <= 16 * 1024
+    assert wp.ring_bytes((2048, 16)) == 65536
+    ins, seq = _inputs(3, windows=True)
+    for layout, ring in (("plain", None), ("packed", None),
+                         ("plain", (128, 1))):
+        lib = _fake_card(monkeypatch, wp)
+        wp._launch(ins, seq, seq, (100, 10, 1, 1), 64, 256, L, False,
+                   layout, ring, 1 << 20, None)
+        (name, args), = lib.calls
+        geo = args[10:12] if layout == "packed" else args[17:19]
+        assert geo == (ring or (wp.RING_CHUNK, wp.RING_SLOTS))
 
 
 @pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
 @pytest.mark.parametrize("L", [2048, 65536, 131072])
 def test_lanepack_rows_pass_direction_and_route(monkeypatch, reverse, L):
     """Both lane-packed rows hand the plain launcher their direction, and
-    row 6 takes the shared-memory route exactly where one lane's windows
-    fit (every L up to 65,536) and the global route above."""
+    row 6 its window length and the one route every L takes now: the ring
+    (no global route above some L)."""
     lib = _fake_card(monkeypatch, wave_cuda)
     ins, seq = _inputs(5)
     wave_cuda._launch(ins, seq, seq, 100, 10, 1, 1, 64, 256, reverse,
@@ -126,13 +135,36 @@ def test_lanepack_rows_pass_direction_and_route(monkeypatch, reverse, L):
     assert name == "wave_lanes_launch" and args[13] == int(reverse)
     lib = _fake_card(monkeypatch, wave_persistent)
     ins, seq = _inputs(5, windows=True)
-    smem = wave_persistent.window_fits_smem(L)
-    assert smem == (L <= 65536)
     wave_persistent._launch(ins, seq, seq, (100, 10, 1, 1), 64, 256, L,
-                            reverse, "lanepack", smem, 1 << 20, None)
+                            reverse, "lanepack", None, 1 << 20, None)
     (name, args), = lib.calls
     assert name == "wave_persistent_launch"
-    assert args[15:18] == (L, int(reverse), int(smem))
+    assert args[15:19] == (L, int(reverse), wave_persistent.RING_CHUNK,
+                           wave_persistent.RING_SLOTS)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("L", [2048, 131072])
+def test_packed_row_passes_its_record_direction_and_l(monkeypatch, reverse,
+                                                      L):
+    """Row 5 hands the packed launcher one (N, 8) record (built from the
+    lane tensors and window starts, or the caller's own), its direction,
+    L and the ring; the launch counts as the packed row's."""
+    wp = wave_persistent
+    ins, seq = _inputs(5, windows=True)
+    rec = wave_cuda.pack_record(ins)
+    for record in (None, rec):
+        lib = _fake_card(monkeypatch, wp)
+        before = wp.wave_lanes_persistent.launches_packed
+        wp._launch(ins, seq, seq, (100, 10, 1, 1), 64, 256, L, reverse,
+                   "packed", None, 1 << 20, record)
+        (name, args), = lib.calls
+        assert name == "wave_persistent_packed_launch"
+        assert args[5:12] == (5, 64, 256, L, int(reverse), wp.RING_CHUNK,
+                              wp.RING_SLOTS)
+        assert wp.wave_lanes_persistent.launches_packed == before + 1
+        if record is not None:
+            assert args[0] == rec.data_ptr()
 
 
 # ---------------------------------------------------------------------------
@@ -140,32 +172,29 @@ def test_lanepack_rows_pass_direction_and_route(monkeypatch, reverse, L):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("lanepack,persistent,persistent_lanepack",
-                         [(False, False, False), (False, True, False),
-                          (True, False, False), (True, True, True)],
-                         ids=["classic", "shipped", "parent_classic",
-                              "parent"])
-def test_wave_ab_times_each_kernel_once(lanepack, persistent,
-                                        persistent_lanepack):
-    """A build without lane-packed launchers (this tree's) is timed in its
-    plain W=64 cases only, which are rows 3 and 6, so no kernel is timed
-    twice under two names; a build with them (an older one) adds row 3 and
-    row 6 by both routes, the long lanes too; a build without persistent
-    kernels has no persistent case."""
-    cases = wave_ab.cases([128, 1024], lanepack, persistent,
-                          persistent_lanepack)
+@pytest.mark.parametrize("routes", [(), ("1024:8",), ("1024:8", "whole"),
+                                    ("smem", "global")],
+                         ids=["classic", "shipped", "rings", "parent"])
+def test_wave_ab_times_each_kernel_once(routes):
+    """Rows 3 and 6 are the plain W=64 cases, so no kernel is timed twice
+    under two names; the persistent rows 4-6 are timed by each of a
+    build's routes (a ring geometry each, or an older whole-window build's
+    smem and global), and so are the long lanes at each count, 8 and
+    1,024; a build without persistent kernels has no persistent case."""
+    cases = wave_ab.cases([128, 1024], routes, (8, 1024))
     assert len(set(cases)) == len(cases)
-    lays = {(c[1], c[2]) for c in cases}
-    assert (("classic", "lanepack") in lays) == lanepack
-    assert (("persistent", "lanepack") in lays) == persistent_lanepack
-    assert any(c[1] == "persistent" for c in cases) == persistent
+    assert {c[2] for c in cases} == {"plain", "packed"}
+    assert any(c[1] == "persistent" for c in cases) == bool(routes)
     for n in (128, 1024):
         for rev in (False, True):
             assert (n, "classic", "plain", 64, rev, "") in cases
-            for route in ("smem", "global"):
-                assert ((n, "persistent", "plain", 64, rev, route)
-                        in cases) == persistent
-                assert (("long", "persistent", "plain", 64, rev, route)
-                        in cases) == persistent
-                assert (("long", "persistent", "lanepack", 64, rev, route)
-                        in cases) == persistent_lanepack
+            for route in routes:
+                for lay in ("plain", "packed"):
+                    assert (n, "persistent", lay, 64, rev, route) in cases
+                for nl in ("long8", "long1024"):
+                    assert (nl, "persistent", "plain", 64, rev,
+                            route) in cases
+    assert wave_ab.ring_geometry("1024:8", 65536) == (1024, 8)
+    for L in (2048, 16384, 65536):
+        c, k = wave_ab.ring_geometry("whole", L)
+        assert c * k == L and c >= 128 and k <= 32
