@@ -34,15 +34,21 @@ ends with {"ok": false, "phase": <the phase>, "error": <the exception>}:
                 ns per wave of its longest lane.
                 Then the three op-cost probe kernels (csrc/probes.cu, the
                 loops of tools/mosaic_{floor,ops,carry}.py): every pattern
-                against its plain version on seeded int32 inputs at G=9,
-                W=64 and W=128 under both barrier policies, at the tools'
-                G=128 rows under the half barrier (W=64), and on the
-                launches timed for the kernels line (G=128, W=128, block;
-                tolerance 0), the SASS of every instantiation checked for
-                the pattern's instructions, and the three probe tools run
-                at their full shapes (their path; records under a
-                temporary directory), ns per application and bound printed
-                per pattern.
+                against its plain version on seeded int32 inputs at G=9
+                under each kernel's two barrier policies (floor and ops:
+                block and warp at W=64, 128 and, floor only, 256; carry:
+                block at W=64 and 128, half at W=64), at the tools' G=128
+                rows under the warp and half policies, and on the launches
+                timed for the kernels line (G=128, W=128; floor and ops
+                under the warp policy, carry under the block one, the block
+                policy's time printed beside; tolerance 0); the SASS of
+                every instantiation checked for the pattern's instructions,
+                for no barrier and no shared memory in a warp-policy
+                kernel's loops, and, for the block and half
+                instantiations, for the parent's SASS digests; and the
+                three probe tools run at their full shapes (their path;
+                records under a temporary directory), ns per application
+                and bound printed per pattern.
   4. mapping  — the damapper path (device index and seed match on the card,
                 native chain sweep, reporter, wave engine on the card) on
                 BASELINE config 1: a 4.6 Mb reference in contigs and 1,000
@@ -515,11 +521,18 @@ def phase_persistent_kernels(torch, seed):
 PROBES = {"probe_floor": "tools/mosaic_floor.py:62",
           "probe_ops": "tools/mosaic_ops.py:123",
           "probe_carry": "tools/mosaic_carry.py:44"}
-PROBE_CASES = ((64, "block"), (64, "half"), (128, "block"))
+# (W, barrier policy) of each probe kernel, as its launchers serve them
+PROBE_CASES = {
+    "floor": ((64, "block"), (64, "warp"), (128, "block"), (128, "warp"),
+              (256, "block"), (256, "warp")),
+    "ops": ((64, "block"), (64, "warp"), (128, "block"), (128, "warp")),
+    "carry": ((64, "block"), (64, "half"), (128, "block"))}
 PROBE_ROW_N = 100   # iterations of the launches timed for the kernels line
+# the policy the kernels line times each probe under (the redesigned one)
+PROBE_ROW_BARRIER = {"floor": "warp", "ops": "warp", "carry": "block"}
 
-# SASS the loop bodies of each pattern's kernel must hold: (regular
-# expression, least count); W-dependent counts are callables of W.  MNMX
+# SASS the loop bodies of each pattern's kernel must hold under the block
+# and half policies: (regular expression, least count); W-dependent counts are callables of W.  MNMX
 # matches VIMNMX and the fused VIADDMNMX; carry60 must add 1 to each of its
 # sixty carried registers on every trip of its loop.
 SASS_NEEDS = {
@@ -541,6 +554,67 @@ SASS_NEEDS = {
     ("carry", "concat2w"): ((r"IADD", 2),),
     ("carry", "dbuf_write"): ((r"SHFL", 5), (r"BAR\.SYNC", 2), (r"STS", 1)),
     ("carry", "dbuf_soa"): ((r"SHFL", 5), (r"BAR\.SYNC", 2), (r"STS", 1)),
+}
+# ... and under the warp policy (one row a warp), where no kernel may hold
+# a barrier or touch shared memory in its loops: the roll and the grab one
+# shuffle, the butterfly 6·W/32 - 1 shuffles an application, a row
+# reduction one redux.sync, cond one vote
+WARP_SASS_NEEDS = {
+    ("floor", "mix"): ((r"SHFL", 1), (r"MNMX", 1)),
+    ("floor", "add"): ((r"LOP3", 2), (r"IADD", 2)),
+    ("ops", "elemwise"): ((r"MNMX", 1),),
+    ("ops", "roll"): ((r"SHFL", 1),),
+    ("ops", "reduce_row"): ((r"REDUX", 1),),
+    ("ops", "reduce_scal"): ((r"REDUX", 1),),
+    ("ops", "onehot_grab"): ((r"SHFL", 1),),
+    ("ops", "scal_arith"): ((r"MNMX", 1),),
+    ("ops", "cond"): ((r"VOTE", 1),),
+    ("ops", "butterfly"): ((r"SHFL", lambda W: 6 * (W // 32) - 1),
+                           (r"MNMX", 1)),
+}
+# SASS digests (tools/wave_ab.py sass_digest) of the block- and half-policy
+# instantiations as the parent commit of the warp policy (d5f6e6f) built
+# them on the H100 machine's nvcc: the warp policy was added beside them,
+# so they must compile to the same code
+PROBE_SASS_NVCC = "Build cuda_12.9.r12.9/compiler.36037853_0"
+PROBE_PARENT_SASS = {
+    "floor add W=64 block": "4f9b106cb19596c7",
+    "floor add W=128 block": "3dac94c7126caed6",
+    "floor add W=256 block": "a50aec911b6a75b7",
+    "floor mix W=64 block": "19853d00d8d18b19",
+    "floor mix W=128 block": "349129bfb800a8d5",
+    "floor mix W=256 block": "31a1eaab4017b116",
+    "ops butterfly W=64 block": "0668c3e7399839d0",
+    "ops butterfly W=128 block": "3c5828722cfb18ba",
+    "ops cond W=64 block": "7a1021400d6a5720",
+    "ops cond W=128 block": "8ff9a36e745dc1a7",
+    "ops elemwise W=64 block": "8b2de2ca62c306d7",
+    "ops elemwise W=128 block": "89d708db7e34ef90",
+    "ops onehot_grab W=64 block": "58f9cddf603e4351",
+    "ops onehot_grab W=128 block": "12dd6eabd408c1f0",
+    "ops reduce_row W=64 block": "78d259056cd843a1",
+    "ops reduce_row W=128 block": "3dd6d5c9d977d7bf",
+    "ops reduce_scal W=64 block": "84a76c31a39a230c",
+    "ops reduce_scal W=128 block": "05e86ada5a2a0988",
+    "ops roll W=64 block": "a378451d52341609",
+    "ops roll W=128 block": "c4e0b6cd78dd0a8d",
+    "ops scal_arith W=64 block": "5ee2cf7fe64a1886",
+    "ops scal_arith W=128 block": "350eb3967acddf63",
+    "carry 3d_minor4 W=64 block": "c436681526a038c0",
+    "carry 3d_minor4 W=64 half": "4660a8b092cf7a41",
+    "carry 3d_minor4 W=128 block": "ad2612443912a8ca",
+    "carry carry60 W=64 block": "83beea3150d0ff53",
+    "carry carry60 W=64 half": "e1d3aa92a320ffc7",
+    "carry carry60 W=128 block": "a4146c42aa7a502a",
+    "carry concat2w W=64 block": "e35cba059fc35954",
+    "carry concat2w W=64 half": "9dd930df8db14636",
+    "carry concat2w W=128 block": "dd1a706f41e1058e",
+    "carry dbuf_soa W=64 block": "b9a9ec9371d3c331",
+    "carry dbuf_soa W=64 half": "7b438bc0b282ab7c",
+    "carry dbuf_soa W=128 block": "d4f920b7c996be14",
+    "carry dbuf_write W=64 block": "e4dde4e8443c3c76",
+    "carry dbuf_write W=64 half": "212e6ad1c8f72186",
+    "carry dbuf_write W=128 block": "1c9a716556430bb3",
 }
 
 
@@ -565,34 +639,60 @@ def _probe_call(probes, kind, name, inp, n, barrier, plain=False):
 def _probe_sass(probes):
     """Checks the loop bodies of every instantiation's SASS for its
     pattern's instructions (nvcc must not have deleted or merged the work
-    being timed); prints the counts."""
+    being timed), that no warp-policy kernel holds a barrier or touches
+    shared memory in its loops, and that the block and half instantiations
+    compile to the parent's SASS; prints the counts."""
     import re
-    from damapper_tpu_torch.tools.wave_ab import loop_ops, sass_counts
+    from damapper_tpu_torch.tools.probe_ab import kernel_key
+    from damapper_tpu_torch.tools.wave_ab import (_nvcc, bar_counts,
+                                                  loop_ops, sass_counts,
+                                                  sass_digest)
     sass = sass_counts(probes.build())
     names = _probe_names(probes)
-    seen = 0
+    nvcc = subprocess.run([_nvcc()[0], "--version"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[-1]
+    check(nvcc == PROBE_SASS_NVCC, f"the parent's probe SASS digests were "
+          f"taken with nvcc {PROBE_SASS_NVCC!r}, this is {nvcc!r}: take "
+          f"them anew with tools/probe_ab.py")
+    seen, same = set(), 0
     for sym, (cnt, text) in sorted(sass.items()):
-        m = re.search(r"(floor|ops|carry)_kernel", sym)
-        if not m:
+        key = kernel_key(sym, names)
+        if key is None:
             continue
-        kind = m.group(1)
-        lits = re.findall(r"L[ib](\d+)E", sym)
-        W, pat = int(lits[0]), names[kind][int(lits[-1])]
-        bar = "half" if "HalfBar" in sym else "block"
+        kind, pat, W, bar = key
+        label = f"{kind} {pat} W={W} {bar}"
         ops = loop_ops(text)
+        needs = (WARP_SASS_NEEDS if bar == "warp" else SASS_NEEDS)[
+            (kind, pat)]
         counts = {}
-        for op, least in SASS_NEEDS[(kind, pat)]:
+        for op, least in needs:
             counts[op] = sum(bool(re.search(op, ln)) for ln in ops)
             need = least(W) if callable(least) else least
-            check(counts[op] >= need, f"SASS of {kind} {pat} W={W} {bar}: "
-                  f"{counts[op]} of {op} in its loops, the pattern needs "
-                  f"{need}")
-        print(f"sass {kind} {pat} W={W} {bar}: {cnt} instructions, "
-              f"{len(ops)} in loops: "
+            check(counts[op] >= need, f"SASS of {label}: {counts[op]} of "
+                  f"{op} in its loops, the pattern needs {need}")
+        if bar == "warp":
+            bars = bar_counts(text.splitlines())
+            shared = sum(bool(re.search(r"\b(?:LDS|STS)", ln))
+                         for ln in ops)
+            check(not bars and not shared, f"SASS of {label}: BAR {bars} "
+                  f"in the kernel, {shared} shared-memory accesses in its "
+                  f"loops")
+        else:
+            dig = sass_digest(text)
+            check(PROBE_PARENT_SASS.get(label) == dig, f"SASS of {label}: "
+                  f"digest {dig}, the parent's "
+                  f"{PROBE_PARENT_SASS.get(label)}")
+            same += 1
+        print(f"sass {label}: {cnt} instructions, {len(ops)} in loops: "
               + ", ".join(f"{op} {c}" for op, c in counts.items()))
-        seen += 1
-    want = sum(len(v) for v in names.values()) * 3 + 2   # floor at W=256
-    check(seen == want, f"SASS of {seen} probe kernels found, {want} built")
+        seen.add(label)
+    want = sum(len(PROBE_CASES[k]) * len(v) for k, v in names.items())
+    check(len(seen) == want, f"SASS of {len(seen)} probe kernels found, "
+          f"{want} built")
+    check(same == len(PROBE_PARENT_SASS), f"{same} block and half "
+          f"instantiations found, the parent built {len(PROBE_PARENT_SASS)}")
+    print(f"probe SASS: {want} kernels; the {same} block and half "
+          f"instantiations compile to the parent's SASS ({nvcc})")
 
 
 def phase_probes(torch, seed, work):
@@ -634,13 +734,14 @@ def phase_probes(torch, seed, work):
             check(e == 0, f"probe {kind} {name} {where}: kernel and plain "
                   f"version differ by {e}")
 
-    # G=9: the last half-barrier block has an idle half; G=128 under the
-    # half barrier: the tools' rows at the wave launch's W=64 (the kernels
-    # line below holds G=128, W=128, block)
+    # G=9: the last half-barrier block has an idle half, the last
+    # warp-policy block warps past G; G=128: the tools' rows under the warp
+    # policy at every W and under the half barrier at the wave launch's
+    # W=64 (the kernels line below holds G=128, W=128 under both policies)
     for kind, pats in names.items():
-        cases = [(9, 5, W, bar) for W, bar in PROBE_CASES
-                 + (((256, "block"),) if kind == "floor" else ())]
-        cases.append((128, PROBE_ROW_N, 64, "half"))
+        cases = [(9, 5, W, bar) for W, bar in PROBE_CASES[kind]]
+        cases += [(128, PROBE_ROW_N, W, bar) for W, bar in PROBE_CASES[kind]
+                  if bar != "block"]
         for G, n, W, bar in cases:
             for name in pats:
                 for neg in (False, True) if name == "cond" else (False,):
@@ -685,30 +786,40 @@ def phase_probes(torch, seed, work):
                       f"{per}us/iter {r['us_per_iter']:.4f}, bound "
                       f"{r['bound_ms']:.6f} ms")
 
-    # the kernels line: one launch per pattern at G=128, W=128, block
-    # barrier, PROBE_ROW_N iterations, timed, and its output held against
-    # the plain version's on the same inputs
+    # the kernels line: one launch per pattern at G=128, W=128,
+    # PROBE_ROW_N iterations, under the kernel's PROBE_ROW_BARRIER policy,
+    # timed, and its output held against the plain version's on the same
+    # inputs; the block policy's launches timed beside it, in turns
     out = {}
     for kind, pats in names.items():
-        ms, pms, bms, bby = [], [], [], []
+        ms, pms, bms, bby, blk = [], [], [], [], []
+        bar = PROBE_ROW_BARRIER[kind]
         for name in pats:
             inp = inputs(kind, 128, 128)
+            if bar != "block":
+                blk.append(_cuda_ms(torch, lambda: _probe_call(
+                    probes, kind, name, inp, PROBE_ROW_N, "block"))[0])
             kms, k = _cuda_ms(torch, lambda: _probe_call(
-                probes, kind, name, inp, PROBE_ROW_N, "block"))
+                probes, kind, name, inp, PROBE_ROW_N, bar))
             torch.cuda.synchronize()
             t0 = time.time()
             r = _probe_call(probes, kind, name, inp, PROBE_ROW_N, "block",
                             plain=True)
             torch.cuda.synchronize()
             pms.append(1e3 * (time.time() - t0))
-            compare(kind, name, k, r, "G=128 W=128 block (timed)")
+            compare(kind, name, k, r, f"G=128 W=128 {bar} (timed)")
             ms.append(kms)
             b, by = probes.bound_ms(kind, name, 128, 128, PROBE_ROW_N)
             bms.append(b)
             bby.append(by)
-        print(f"probe_{kind} G=128 W=128 n={PROBE_ROW_N}: " + ", ".join(
+        if blk:
+            print(f"probe_{kind} G=128 W=128 n={PROBE_ROW_N} block: "
+                  + ", ".join(f"{nm} {m:.4f} ms" for nm, m in zip(pats, blk))
+                  + f"; mean {np.mean(blk):.4f} ms")
+        print(f"probe_{kind} G=128 W=128 n={PROBE_ROW_N} {bar}: " + ", ".join(
             f"{nm} {m:.4f} ms (plain {p:.1f}, bound {b:.6f})"
-            for nm, m, p, b in zip(pats, ms, pms, bms)))
+            for nm, m, p, b in zip(pats, ms, pms, bms))
+            + f"; mean {np.mean(ms):.4f} ms")
         out["probe_" + kind] = dict(
             max_abs_err=err[kind], ms=float(np.mean(ms)),
             plain_ms=float(np.mean(pms)), bound_ms=float(np.mean(bms)),

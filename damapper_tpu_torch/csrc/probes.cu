@@ -13,18 +13,33 @@
 //   probe_carry_launch <- tools/mosaic_carry.py:27 bench.kernel (pallas_call
 //                         at :44) over the five bodies of main (:73-136).
 //
-// Layout: one row g per W threads, thread t owns column t, as the wave
-// kernels own one lane per W threads.  Every cross-thread step goes through
-// a barrier policy (below): BlockBar (one block of W threads per row,
-// __syncthreads, as the wave kernels run) or HalfBar (W=64 only: rows 2b
-// and 2b+1 in the two halves of a 128-thread block, each half on its own
-// named barrier, as the lane-packed wave kernels once ran).  Votes
-// (vote_any) and row reductions (block_reduce: a warp butterfly, then the
-// warps' values through shared memory between two barriers) are the steps
-// of the wave body before its barrier rounds (Rounds, redux.sync); a roll
-// is a store to shared memory, a barrier, a neighbour read and a barrier.
-// So each probe times a step of that body, under the policy it executed it
-// with.
+// Layouts, one per barrier policy (each kernel serves two of them):
+//   BlockBar  one row g per block of W threads, thread t owns column t, as
+//             the wave kernels own one lane per W threads; every step across
+//             columns goes through shared memory and __syncthreads: a roll
+//             is exchange() (a store, a barrier, a neighbour read, a
+//             barrier), a row max or sum block_reduce() (a warp butterfly,
+//             then the warps' values through shared memory between two
+//             barriers), a vote __syncthreads_or.  These are the block rounds
+//             the wave body runs, so the block policy prices them.  All three
+//             kernels serve it.
+//   HalfBar   (probe_carry only; W=64) rows 2b and 2b+1 in the two halves of
+//             a 128-thread block, each half on its own named barrier, as the
+//             lane-packed wave kernels once ran.
+//   WarpBar   (probe_floor, probe_ops) one row g on one warp, kWarpRows rows a
+//             block: lane l holds the V = W/32 consecutive columns
+//             [l*V, l*V + V) in V registers, and no step touches shared
+//             memory or a barrier.  A roll by one column moves the registers
+//             up by one and takes register V-1 of lane l-1 with one
+//             __shfl_sync; a row max folds the V registers, then one
+//             redux.sync (every lane gets the result: the broadcast); the
+//             one-hot grab of column c is register c mod V of lane c/V (a
+//             tree of selects, then one shuffle); cond votes with __any_sync;
+//             the butterfly's shifts below V move within the registers, one
+//             shuffle from lane l+1 for each register that crosses, and a
+//             shift of d*V takes each register from d lanes down.  So the
+//             warp policy prices the warp-wide steps against the block rounds
+//             they would replace.
 //
 // int32 arithmetic wraps in two's complement, as in JAX: every add that can
 // overflow goes through unsigned (wadd), since signed overflow is undefined
@@ -37,17 +52,28 @@
 // runs one iteration per trip (#pragma unroll 1, as the Pallas while_loop
 // does) so that ptxas cannot merge two iterations' adds either (unrolled
 // by two, carry60's sixty +1s became thirty +2s).  chip_smoke.py checks
-// the SASS of every loop body for the pattern's instructions.
+// the SASS of every loop body for the pattern's instructions, and that no
+// warp-policy kernel holds a barrier.
 //
 // What bounds them on this card: none is bound by bytes (each reads and
 // writes its (G, W) arrays once) or by the integer rate (at most a few
 // hundred operations per thread per iteration on 132 SMs).  They are bound
-// by the latency of dependent chains: elementwise chains by the ALU
-// latency of one thread, the rolls, votes and reductions by barrier and
-// shared-memory round trips.  At G=128 a launch fills one block per SM, so
-// no other block hides that latency, as in a wave launch of 128 lanes.
+// by the latency of dependent chains.  Under the block policy the
+// elementwise chains wait on the ALU latency of one thread, and the rolls,
+// votes and reductions on barrier and shared-memory round trips (PERF.md
+// section 6: a vote ~26 ns, an exchange 33-46, a block reduction 104-121,
+// a butterfly 214-294).  The warp policy removes the round trips: a roll
+// or a grab is one shuffle, a reduction a fold and one redux.sync, a vote
+// one VOTE (at W=128: ~8, ~29, ~32 and ~7 ns; a butterfly ~129).  What is
+// left is the shuffle and redux latency and the ALU chains, which now
+// interleave V columns a thread: issue, not latency, bounds them once V
+// times the chain's instructions pass its latency (elemwise at W=128:
+// ~11 ns an application against the block policy's ~7).  At G=128 a launch fills about one SM per row (one
+// warp under the warp policy), so no other warp hides that latency, as in
+// a wave launch of 128 lanes.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "wave_body.cuh"
@@ -56,8 +82,8 @@ namespace {
 
 using namespace wavebody;
 
-// the barrier policies: the whole block, or the named barrier of the 64
-// threads of one half of a 128-thread block
+// the barrier policies: the whole block, the named barrier of the 64
+// threads of one half of a 128-thread block, or none (one row a warp)
 struct BlockBar {
   __device__ __forceinline__ void sync() const { __syncthreads(); }
 };
@@ -69,6 +95,12 @@ struct HalfBar {
     asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
   }
 };
+
+struct WarpBar {};
+
+// rows (warps) in a block under the warp policy: 1 and 4 ran within 5% of
+// each other on every pattern and shape on the H100 (PERF.md section 6)
+constexpr int kWarpRows = 4;
 
 template <int V>
 struct Int {
@@ -86,21 +118,9 @@ struct OpWrapSum {
   __device__ int operator()(int a, int b) const { return wadd(a, b); }
 };
 
-// the policy's vote over the row's threads
+// the block's vote over the row's threads
 __device__ __forceinline__ int vote_any(const BlockBar&, int p) {
   return __syncthreads_or(p);
-}
-__device__ __forceinline__ int vote_any(const HalfBar& bar, int p) {
-  int r;
-  asm volatile(
-      "{\n\t.reg .pred ip, op;\n\t"
-      "setp.ne.s32 ip, %1, 0;\n\t"
-      "bar.red.or.pred op, %2, 64, ip;\n\t"
-      "selp.s32 %0, 1, 0, op;\n\t}"
-      : "=r"(r)
-      : "r"(p), "r"(bar.id)
-      : "memory");
-  return r;
 }
 
 // the op over the row's W values: a warp butterfly, then the NW warps'
@@ -153,10 +173,92 @@ __device__ __forceinline__ int exchange(int v, int src, int* buf,
   return r;
 }
 
+// the warp policy's row: warp threadIdx.x / 32 of the block, lane l holding
+// columns [l*V, l*V + V); a warp whose row is past G returns at once
+template <int W>
+struct Row<W, WarpBar> {
+  static constexpr int kThreads = 32 * kWarpRows, kRows = kWarpRows;
+  __device__ static int g() {
+    return blockIdx.x * kWarpRows + (threadIdx.x >> 5);
+  }
+  __device__ static int t() { return threadIdx.x & 31; }
+};
+
+// roll(x, 1) along a warp's row: column j takes column j - 1 (mod W), so
+// the registers move up by one and register 0 takes register V-1 of lane
+// l-1 (lane 0 that of lane 31: column W-1)
+template <int V>
+__device__ __forceinline__ void warp_roll(int (&v)[V], int l) {
+  const int c = __shfl_sync(FULL, v[V - 1], (l + 31) & 31);
+#pragma unroll
+  for (int k = V - 1; k > 0; --k) v[k] = v[k - 1];
+  v[0] = c;
+}
+
+// the row's max, in every lane: fold the V registers, then one redux.sync
+template <int V>
+__device__ __forceinline__ int warp_row_max(const int (&v)[V]) {
+  int m = v[0];
+#pragma unroll
+  for (int k = 1; k < V; ++k) m = max(m, v[k]);
+  return __reduce_max_sync(FULL, m);
+}
+
+// the row's value at column c, which the whole warp agrees on: register
+// c mod V of lane c / V.  The register is picked by a tree of selects on
+// the bits of c (log2 V deep), then one shuffle brings it from its lane.
+// A chain of selects on c mod V == k compiled at V=4 to the lowering of a
+// dynamically indexed array (branches), 2.7x slower.  The one-hot sum of the Pallas pattern has exactly one
+// non-zero term, so this is that sum.
+template <int V>
+__device__ __forceinline__ int warp_grab(const int (&v)[V], unsigned c) {
+  int t[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) t[k] = v[k];
+#pragma unroll
+  for (int w = 1; w < V; w <<= 1)
+#pragma unroll
+    for (int k = 0; k < V; k += 2 * w) t[k] = (c & w) ? t[k + w] : t[k];
+  return __shfl_sync(FULL, t[0], c / V);
+}
+
+// one application of the revcummax scan on a warp's row: for sft = 1, 2,
+// ..., W/2, o[j] = max(o[j], j + sft < W ? o[j + sft] : NEG_BIG), every
+// shift's values taken before it writes.  sft < V: register k takes
+// register k+sft of its own lane, or register k+sft-V of lane l+1 (one
+// shuffle a crossing register; past the row's end only for lane 31, whose
+// shuffle returns its own value, masked).  sft = d*V: register k takes
+// register k of lane l+d, past the row's end for l + d >= 32.
+template <int W>
+__device__ __forceinline__ void warp_butterfly(int (&o)[W / 32], int l) {
+  constexpr int V = W / 32;
+#pragma unroll
+  for (int sft = 1; sft < V; sft <<= 1) {
+    int sh[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int src = o[(k + sft) & (V - 1)];
+      sh[k] = k + sft < V ? src : __shfl_down_sync(FULL, src, 1);
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      o[k] = max(o[k], (k + sft < V || l < 31) ? sh[k] : NEG_BIG);
+  }
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int sh = __shfl_down_sync(FULL, o[k], d);
+      o[k] = max(o[k], l + d < 32 ? sh : NEG_BIG);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // probe_floor: tools/mosaic_floor.py:32.  Carried state: x, all of it in the
-// output.  Bound: latency; "mix" one exchange per quad, "add" a chain of
-// four dependent ALU operations per quad.
+// output.  Bound: latency; "mix" one exchange per quad (block policy) or
+// one shuffle (warp policy), "add" a chain of four dependent ALU
+// operations per quad.
 // ---------------------------------------------------------------------------
 
 template <int W, class Bar, bool ADD>
@@ -166,7 +268,7 @@ floor_kernel(const int* __restrict__ xin, int* __restrict__ out, int G,
   using R = Row<W, Bar>;
   __shared__ int buf[R::kRows][W];
   const int g = R::g(), t = R::t();
-  if (g >= G) return;   // HalfBar, odd G: the last half idles
+  if (g >= G) return;
   const Bar bar = R::bar();
   int* const b = buf[R::half()];
   const int left = (t - 1) & (W - 1);   // roll(x, 1): x[j - 1]
@@ -192,13 +294,54 @@ floor_kernel(const int* __restrict__ xin, int* __restrict__ out, int G,
   out[i0] = x;
 }
 
+// the warp policy: V chains a thread; "mix" rolls with one shuffle a quad
+template <int W, bool ADD>
+__global__ void __launch_bounds__((Row<W, WarpBar>::kThreads))
+floor_warp_kernel(const int* __restrict__ xin, int* __restrict__ out, int G,
+                  int n, int nquads) {
+  using R = Row<W, WarpBar>;
+  constexpr int V = W / 32;
+  const int g = R::g(), l = R::t();
+  if (g >= G) return;
+  const long long i0 = (long long)g * W + l * V;
+  int x[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) x[k] = xin[i0 + k];
+#pragma unroll 1
+  for (int it = 0; it < n; ++it) {
+    for (int q = 0; q < nquads; ++q) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        if (ADD) {
+          x[k] = wadd(x[k], 1);
+          x[k] ^= 3;
+          x[k] = wadd(x[k], 7);
+          x[k] ^= 5;
+        } else {
+          x[k] = wadd(x[k], 1);
+          x[k] = x[k] > 100000 ? x[k] - 100000 : x[k];
+        }
+      }
+      if (!ADD) {
+        warp_roll(x, l);
+#pragma unroll
+        for (int k = 0; k < V; ++k) x[k] = max(x[k], x[k] ^ 2);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) keep(x[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k) out[i0 + k] = x[k];
+}
+
 // ---------------------------------------------------------------------------
 // probe_ops: tools/mosaic_ops.py:102.  Carried state: x and s, both in the
 // outputs (scal_arith changes only s; x passes through).  cond: s is an
 // input and never changes, so each block reduces (s > 0).any() over all G
-// rows once before its loop; every application then votes on it with the
-// policy's vote_any() (__syncthreads_or / bar.red.or) and takes the
-// branch.  Bound: latency of the pattern's chain (see top).
+// rows once before its loop; every application then votes on it with
+// vote_any() (__syncthreads_or) and takes the branch.  Bound: latency of
+// the pattern's chain (see top).
 // ---------------------------------------------------------------------------
 
 enum { ELEMWISE, ROLL, REDUCE_ROW, REDUCE_SCAL, ONEHOT_GRAB, SCAL_ARITH, COND,
@@ -267,6 +410,71 @@ ops_kernel(const int* __restrict__ xin, const int* __restrict__ s_in,
   }
   xout[i0] = x;
   if (t == 0) sout[g] = s;
+}
+
+// the warp policy.  s is the row's scalar, held alike by every lane.  cond:
+// each lane ors (s > 0) over rows l, l+32, ... before the loop, and every
+// application votes on that with __any_sync, which gives the whole
+// (s > 0).any(); keep() makes the predicate opaque at each application so
+// that the front end cannot take the vote out of the loop.
+template <int W, int PAT>
+__global__ void __launch_bounds__((Row<W, WarpBar>::kThreads))
+ops_warp_kernel(const int* __restrict__ xin, const int* __restrict__ s_in,
+                int* __restrict__ xout, int* __restrict__ sout, int G, int n,
+                int reps) {
+  using R = Row<W, WarpBar>;
+  constexpr int V = W / 32;
+  const int g = R::g(), l = R::t();
+  if (g >= G) return;
+  const long long i0 = (long long)g * W + l * V;
+  int x[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) x[k] = xin[i0 + k];
+  int s = s_in[g];
+  int pred = 0;
+  if (PAT == COND)
+    for (int i = l; i < G; i += 32) pred |= s_in[i] > 0;
+  const int nbf = reps / 7 > 1 ? reps / 7 : 1;
+#pragma unroll 1
+  for (int it = 0; it < n; ++it) {
+    if (PAT == BUTTERFLY) {
+      for (int r = 0; r < nbf; ++r) warp_butterfly<W>(x, l);
+    } else {
+      for (int r = 0; r < reps; ++r) {
+        if (PAT == ELEMWISE) {
+#pragma unroll
+          for (int k = 0; k < V; ++k) x[k] = max(wadd(x[k], 1), x[k] ^ 3);
+        } else if (PAT == ROLL) {
+          warp_roll(x, l);
+#pragma unroll
+          for (int k = 0; k < V; ++k) x[k] = wadd(x[k], 1);
+        } else if (PAT == REDUCE_ROW) {
+          const int m = warp_row_max(x);
+#pragma unroll
+          for (int k = 0; k < V; ++k) x[k] = wadd(x[k], m);
+        } else if (PAT == REDUCE_SCAL) {
+          s = wadd(s, warp_row_max(x));
+#pragma unroll
+          for (int k = 0; k < V; ++k) x[k] = wadd(x[k], s);
+        } else if (PAT == ONEHOT_GRAB) {
+          s = wadd(s, warp_grab(x, (unsigned)s & (W - 1)));
+        } else if (PAT == SCAL_ARITH) {
+          s = max(wadd(s, 1), s ^ 3);
+        } else {   // COND
+          keep(pred);
+          const int d = __any_sync(FULL, pred) ? 1 : -1;
+#pragma unroll
+          for (int k = 0; k < V; ++k) x[k] = wadd(x[k], d);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) keep(x[k]);
+    keep(s);
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k) xout[i0 + k] = x[k];
+  if (l == 0) sout[g] = s;
 }
 
 // ---------------------------------------------------------------------------
@@ -377,20 +585,31 @@ carry_kernel(const int* __restrict__ x0, int* __restrict__ out,
 
 // ---------------------------------------------------------------------------
 // dispatch: (W, barrier) -> the instantiation; barrier 0 block, 1 half
-// (W=64 only); W=256 only where W256
+// (W=64 only), 2 warp.  Alt is the kernel's second policy (HalfBar or
+// WarpBar); W=256 only where W256.
 // ---------------------------------------------------------------------------
 
 template <bool W256, class F>
-cudaError_t by_shape(int W, int barrier, F&& f) {
-  if (barrier == 1)
-    return W == 64 ? f(Int<64>{}, HalfBar{0}) : cudaErrorInvalidValue;
-  if (barrier != 0) return cudaErrorInvalidValue;
-  if (W == 64) return f(Int<64>{}, BlockBar{});
-  if (W == 128) return f(Int<128>{}, BlockBar{});
+cudaError_t by_width(int W, F&& f) {
+  if (W == 64) return f(Int<64>{});
+  if (W == 128) return f(Int<128>{});
   if constexpr (W256) {
-    if (W == 256) return f(Int<256>{}, BlockBar{});
+    if (W == 256) return f(Int<256>{});
   }
   return cudaErrorInvalidValue;
+}
+
+template <bool W256, class Alt, class F>
+cudaError_t by_shape(int W, int barrier, F&& f) {
+  if constexpr (std::is_same<Alt, HalfBar>::value) {
+    if (barrier == 1)
+      return W == 64 ? f(Int<64>{}, HalfBar{0}) : cudaErrorInvalidValue;
+  } else {
+    if (barrier == 2)
+      return by_width<W256>(W, [&](auto w) { return f(w, WarpBar{}); });
+  }
+  if (barrier != 0) return cudaErrorInvalidValue;
+  return by_width<W256>(W, [&](auto w) { return f(w, BlockBar{}); });
 }
 
 template <int W, class Bar>
@@ -401,8 +620,25 @@ dim3 grid(int G) {
 template <int W, class Bar, int P>
 void ops_one(const int* x, const int* s, int* xo, int* so, int G, int n,
              int reps, cudaStream_t st) {
-  ops_kernel<W, Bar, P><<<grid<W, Bar>(G), Row<W, Bar>::kThreads, 0, st>>>(
-      x, s, xo, so, G, n, reps);
+  if constexpr (std::is_same<Bar, WarpBar>::value)
+    ops_warp_kernel<W, P><<<grid<W, Bar>(G), Row<W, Bar>::kThreads, 0, st>>>(
+        x, s, xo, so, G, n, reps);
+  else
+    ops_kernel<W, Bar, P><<<grid<W, Bar>(G), Row<W, Bar>::kThreads, 0, st>>>(
+        x, s, xo, so, G, n, reps);
+}
+
+template <int W, class Bar, bool ADD>
+void floor_one(const int* x, int* out, int G, int n, int nquads,
+               cudaStream_t st) {
+  if constexpr (std::is_same<Bar, WarpBar>::value)
+    floor_warp_kernel<W, ADD>
+        <<<grid<W, Bar>(G), Row<W, Bar>::kThreads, 0, st>>>(x, out, G, n,
+                                                             nquads);
+  else
+    floor_kernel<W, Bar, ADD>
+        <<<grid<W, Bar>(G), Row<W, Bar>::kThreads, 0, st>>>(x, out, G, n,
+                                                             nquads);
 }
 
 template <int W, class Bar, int P>
@@ -419,16 +655,13 @@ extern "C" int probe_floor_launch(const int* x, int* out, int G, int W,
                                   void* stream) {
   if (G <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)by_shape<true>(W, barrier, [&](auto w, auto b) {
+  return (int)by_shape<true, WarpBar>(W, barrier, [&](auto w, auto b) {
     constexpr int Wc = decltype(w)::value;
     using Bar = decltype(b);
-    const dim3 gr = grid<Wc, Bar>(G);
     if (add)
-      floor_kernel<Wc, Bar, true><<<gr, Row<Wc, Bar>::kThreads, 0, st>>>(
-          x, out, G, n, nquads);
+      floor_one<Wc, Bar, true>(x, out, G, n, nquads, st);
     else
-      floor_kernel<Wc, Bar, false><<<gr, Row<Wc, Bar>::kThreads, 0, st>>>(
-          x, out, G, n, nquads);
+      floor_one<Wc, Bar, false>(x, out, G, n, nquads, st);
     return cudaGetLastError();
   });
 }
@@ -439,7 +672,7 @@ extern "C" int probe_ops_launch(const int* x, const int* s, int* xout,
   if (G <= 0) return 0;
   if (pattern < 0 || pattern >= NPAT) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)by_shape<false>(W, barrier, [&](auto w, auto b) {
+  return (int)by_shape<false, WarpBar>(W, barrier, [&](auto w, auto b) {
     constexpr int Wc = decltype(w)::value;
     using Bar = decltype(b);
     switch (pattern) {
@@ -462,7 +695,7 @@ extern "C" int probe_carry_launch(const int* x0, int* out, int* aux, int G,
   if (G <= 0) return 0;
   if (body < 0 || body >= NBODY) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)by_shape<false>(W, barrier, [&](auto w, auto b) {
+  return (int)by_shape<false, HalfBar>(W, barrier, [&](auto w, auto b) {
     constexpr int Wc = decltype(w)::value;
     using Bar = decltype(b);
     switch (body) {

@@ -3,16 +3,27 @@ microbenchmarks (``tools/mosaic_floor.py``, ``mosaic_ops.py``,
 ``mosaic_carry.py``) as kernels for Hopper.
 
 Each probe runs ``n`` iterations of one pattern of the wave body's inner
-loop on a (G, W) int32 array, one row per W threads, with the cross-thread
-steps on the wave body's block barrier or on the half-block barriers that
-the lane-packed wave kernels once ran on.  Three kernels in
-``csrc/probes.cu``, built with nvcc at first use into
-``build/torch_kernels/libprobes.so`` and bound through ctypes:
+loop on a (G, W) int32 array.  Three kernels in ``csrc/probes.cu``, built
+with nvcc at first use into ``build/torch_kernels/libprobes.so`` and bound
+through ctypes, each serving two row layouts (``barrier``; see the note at
+the top of ``csrc/probes.cu``):
 
   * ``floor_probe``  — mosaic_floor.py:32 (``pallas_call`` at :62);
+    ``block`` or ``warp``;
   * ``ops_probe``    — mosaic_ops.py:102 (:123) over ``mk_patterns``;
+    ``block`` or ``warp``;
   * ``carry_probe``  — mosaic_carry.py:27 (:44) over the five bodies of
-    its ``main``.
+    its ``main``; ``block`` or ``half``.
+
+``block``: one row per block of W threads, every step across columns
+through shared memory and block barriers, as the wave body's rounds run.
+``warp``: one row per warp, lane l holding columns [l·W/32, (l+1)·W/32) in
+registers; rolls, grabs and the butterfly's shifts are shuffles, row
+reductions one ``redux.sync``, the vote one ``__any_sync``, and no barrier.
+``half`` (W=64): two rows per 128-thread block on named half-block
+barriers, as the lane-packed wave kernels once ran.  So the probes price a
+wave's block rounds against the warp-wide steps that would replace them.
+A wrapper raises on a policy its kernel does not serve, on any device.
 
 Beside each, ``*_ref`` is the plain PyTorch version of the same function
 (torch's int32 add wraps in two's complement, as JAX's does and as the
@@ -39,7 +50,9 @@ FLOOR_VARIANTS = ("mix", "add")
 OPS_PATTERNS = ("elemwise", "roll", "reduce_row", "reduce_scal",
                 "onehot_grab", "scal_arith", "cond", "butterfly")
 CARRY_BODIES = ("carry60", "3d_minor4", "concat2w", "dbuf_write", "dbuf_soa")
-BARRIERS = ("block", "half")   # half: two W=64 rows per 128-thread block
+BARRIERS = ("block", "half", "warp")   # the kernels' barrier ids
+SERVED = {"floor_probe": ("block", "warp"), "ops_probe": ("block", "warp"),
+          "carry_probe": ("block", "half")}
 DBUF = 192                     # the dbuf bodies' slots per row
 NEG_BIG = -(1 << 30)           # butterfly's fill
 
@@ -239,20 +252,24 @@ def build(verbose: bool = False):
     return nvcc_build(CSRC_DIR / "probes.cu", "libprobes.so", verbose)
 
 
+def bind(lib):
+    """Sets the C signatures of a build of csrc/probes.cu; returns lib."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.probe_floor_launch.argtypes = [P, P] + [I] * 6 + [P]
+    lib.probe_ops_launch.argtypes = [P] * 4 + [I] * 6 + [P]
+    lib.probe_carry_launch.argtypes = [P] * 3 + [I] * 5 + [P]
+    for fn in (lib.probe_floor_launch, lib.probe_ops_launch,
+               lib.probe_carry_launch):
+        fn.restype = I
+    lib.probe_error_string.restype = ctypes.c_char_p
+    lib.probe_error_string.argtypes = [I]
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.probe_floor_launch.argtypes = [P, P] + [I] * 6 + [P]
-        lib.probe_ops_launch.argtypes = [P] * 4 + [I] * 6 + [P]
-        lib.probe_carry_launch.argtypes = [P] * 3 + [I] * 5 + [P]
-        for fn in (lib.probe_floor_launch, lib.probe_ops_launch,
-                   lib.probe_carry_launch):
-            fn.restype = I
-        lib.probe_error_string.restype = ctypes.c_char_p
-        lib.probe_error_string.argtypes = [I]
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(build())))
     return _lib
 
 
@@ -261,6 +278,13 @@ def _check(fn, name, t, shape, dev):
             or not t.is_contiguous() or t.device != dev:
         raise ValueError(f"{fn}: {name} must be a contiguous int32 "
                          f"{list(shape)} tensor on {dev}")
+
+
+def _served(fn, barrier):
+    """Raises unless the wrapper's kernel serves the barrier policy."""
+    if barrier not in SERVED[fn]:
+        raise ValueError(f"{fn}: barrier must be one of {SERVED[fn]}, not "
+                         f"{barrier!r}")
 
 
 def _cuda_args(fn, x, W_ok, barrier, n):
@@ -272,8 +296,6 @@ def _cuda_args(fn, x, W_ok, barrier, n):
         raise ValueError(f"{fn}: x must be (G, W)")
     G, W = (int(d) for d in x.shape)
     _check(fn, "x", x, (G, W), x.device)
-    if barrier not in BARRIERS:
-        raise ValueError(f"{fn}: barrier must be one of {BARRIERS}")
     if W not in W_ok or (barrier == "half" and W != 64):
         raise ValueError(f"{fn}: W={W} is not served with barrier "
                          f"{barrier!r} (W in {W_ok}; half: W=64)")
@@ -294,10 +316,12 @@ def _stream(dev):
 
 def floor_probe(x, n, nops=96, variant="mix", barrier="block"):
     """mosaic_floor's kernel: n iterations of nops//4 quads of ``variant``
-    on x, int32 (G, W) with W in 64, 128, 256.  Returns x (G, W)."""
+    on x, int32 (G, W) with W in 64, 128, 256, under ``barrier`` "block"
+    or "warp".  Returns x (G, W)."""
     fn = "floor_probe"
     if variant not in FLOOR_VARIANTS:
         raise ValueError(f"{fn}: variant must be one of {FLOOR_VARIANTS}")
+    _served(fn, barrier)
     if lane_device_kinds(fn, (x,)) == "cpu":
         return floor_probe_ref(x, n, nops, variant)
     G, W, bid = _cuda_args(fn, x, (64, 128, 256), barrier, n)
@@ -312,10 +336,12 @@ def floor_probe(x, n, nops=96, variant="mix", barrier="block"):
 
 def ops_probe(x, s, n, reps=28, pattern="elemwise", barrier="block"):
     """mosaic_ops's kernel over one pattern of ``mk_patterns``: x int32
-    (G, W) with W in 64, 128, s int32 (G, 1).  Returns (x, s)."""
+    (G, W) with W in 64, 128, s int32 (G, 1), under ``barrier`` "block"
+    or "warp".  Returns (x, s)."""
     fn = "ops_probe"
     if pattern not in OPS_PATTERNS:
         raise ValueError(f"{fn}: pattern must be one of {OPS_PATTERNS}")
+    _served(fn, barrier)
     if lane_device_kinds(fn, (x, s)) == "cpu":
         return ops_probe_ref(x, s, n, reps, pattern)
     G, W, bid = _cuda_args(fn, x, (64, 128), barrier, n)
@@ -331,12 +357,14 @@ def ops_probe(x, s, n, reps=28, pattern="elemwise", barrier="block"):
 
 def carry_probe(x0, n, body, barrier="block"):
     """mosaic_carry's kernel over one body: the state made from x0 int32
-    (G, W) with W in 64, 128 (``carry_init``), n iterations.  Returns
-    (st[0] (G, W) — the Pallas kernel's output when x0 is 0 —, the rest of
-    the state as ``aux``, shaped by ``aux_shape``)."""
+    (G, W) with W in 64, 128 (``carry_init``), n iterations, under
+    ``barrier`` "block" or "half" (W=64).  Returns (st[0] (G, W) — the
+    Pallas kernel's output when x0 is 0 —, the rest of the state as
+    ``aux``, shaped by ``aux_shape``)."""
     fn = "carry_probe"
     if body not in CARRY_BODIES:
         raise ValueError(f"{fn}: body must be one of {CARRY_BODIES}")
+    _served(fn, barrier)
     if lane_device_kinds(fn, (x0,)) == "cpu":
         return carry_probe_ref(x0, n, body)
     G, W, bid = _cuda_args(fn, x0, (64, 128), barrier, n)

@@ -6,15 +6,16 @@ package's ``tools/mosaic_floor.py``.
 Times one launch of ``ops.probes.floor_probe`` (``csrc/probes.cu``): niter
 iterations of nops//4 quads of chained int32 operations on a (G, W) array,
 "mix" (x+1; where; roll by one column; max(x, x^2)) or "add" (x+1, ^3, +7,
-^5), one row per W threads.  Shapes: mosaic_floor.py's, plus the wave
-launch's own (G=128, W=64 and 128); at W=64 under both barrier policies
-(``block``: one block per row; ``half``: two rows per 128-thread block on
-named barriers).  Each record times niter and 5·niter iterations with CUDA
-events after a warm-up and takes the slope, as mosaic_floor.py's slope
-cancels the launch.  Records (JSON lines, printed, and appended to --out
-when given): mosaic_floor.py's keys plus ``device``, ``power_limit``,
-``barrier`` and ``bound_ms`` (the least time of the niter launch).  Without
-a CUDA card it exits non-zero.
+^5).  Shapes: mosaic_floor.py's, plus the wave launch's own (G=128, W=64
+and 128); each under the kernel's two row layouts in turns (``block``: one
+row per block of W threads, the roll a shared-memory exchange between two
+barriers; ``warp``: one row per warp, W/32 columns a lane in registers,
+the roll one shuffle).  Each record times niter and 5·niter iterations
+with CUDA events after a warm-up and takes the slope, as mosaic_floor.py's
+slope cancels the launch.  Records (JSON lines, printed, and appended to
+--out when given): mosaic_floor.py's keys plus ``device``,
+``power_limit``, ``barrier`` and ``bound_ms`` (the least time of the niter
+launch).  Without a CUDA card it exits non-zero.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ def main(argv=None) -> int:
     torch = open_card("floor_probe")
     if torch is None:
         return 2
-    from ..ops.probes import bound_ms, floor_probe
+    from ..ops.probes import SERVED, bound_ms, floor_probe
 
     dev = torch.device("cuda")
     info = card(torch)
@@ -48,7 +49,7 @@ def main(argv=None) -> int:
         for variant, shapes in SHAPES.items():
             for G, W in shapes:
                 x = torch.zeros((G, W), dtype=torch.int32, device=dev)
-                for barrier in ("block", "half") if W == 64 else ("block",):
+                for barrier in SERVED["floor_probe"]:
                     ms, per_iter = slope(torch, lambda n: floor_probe(
                         x, n, args.nops, variant, barrier), args.niter)
                     emit({"G": G, "W": W, "niter": args.niter,

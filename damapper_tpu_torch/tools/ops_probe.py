@@ -8,12 +8,16 @@ reduce_row, reduce_scal, onehot_grab, scal_arith, cond, butterfly), times
 one launch of ``ops.probes.ops_probe`` (``csrc/probes.cu``) whose loop
 applies the pattern reps times per iteration (butterfly max(1, reps//7)
 times) on x (G, W) and s (G, 1), both ones as in mosaic_ops.py.  Shapes:
-mosaic_ops.py's, plus the wave launch's (G=128, W=64); at W=64 under both
-barrier policies.  The slope of niter and 5·niter iterations (CUDA events,
-after a warm-up) gives ns per application.  Records: mosaic_ops.py's keys
-(``ns_per_app``) plus ``us_per_iter``, ``ms`` (the niter launch),
-``device``, ``power_limit``, ``barrier`` and ``bound_ms``; printed, and
-appended to --out when given.  Without a CUDA card it exits non-zero.
+mosaic_ops.py's, plus the wave launch's (G=128, W=64); each under the
+kernel's two row layouts in turns (``block``: one row per block of W
+threads, rolls and reductions through shared memory and block barriers;
+``warp``: one row per warp, columns in registers, shuffles and
+``redux.sync``, no barrier).  The slope of niter and 5·niter iterations
+(CUDA events, after a warm-up) gives ns per application.  Records:
+mosaic_ops.py's keys (``ns_per_app``) plus ``us_per_iter``, ``ms`` (the
+niter launch), ``device``, ``power_limit``, ``barrier`` and ``bound_ms``;
+printed, and appended to --out when given.  Without a CUDA card it exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ def main(argv=None) -> int:
     torch = open_card("ops_probe")
     if torch is None:
         return 2
-    from ..ops.probes import OPS_PATTERNS, bound_ms, butterfly_apps, ops_probe
+    from ..ops.probes import (OPS_PATTERNS, SERVED, bound_ms,
+                              butterfly_apps, ops_probe)
 
     dev = torch.device("cuda")
     info = card(torch)
@@ -48,7 +53,7 @@ def main(argv=None) -> int:
             for name in OPS_PATTERNS:
                 apps = butterfly_apps(args.reps) if name == "butterfly" \
                     else args.reps
-                for barrier in ("block", "half") if W == 64 else ("block",):
+                for barrier in SERVED["ops_probe"]:
                     ms, per_iter = slope(torch, lambda n: ops_probe(
                         x, s, n, args.reps, name, barrier), args.niter)
                     emit({"G": G, "W": W, "pat": name,

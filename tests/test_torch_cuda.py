@@ -372,7 +372,12 @@ def test_persistent_lanes_per_sm_do_not_fall_with_the_window(cuda_device,
                                          ring=(128, 1))
 
 
-PROBE_CASES = [(64, "block"), (64, "half"), (128, "block")]
+# (W, barrier policy) of each probe kernel, as its launchers serve them
+PROBE_CASES = {
+    "floor": [(64, "block"), (64, "warp"), (128, "block"), (128, "warp"),
+              (256, "block"), (256, "warp")],
+    "ops": [(64, "block"), (64, "warp"), (128, "block"), (128, "warp")],
+    "carry": [(64, "block"), (64, "half"), (128, "block")]}
 
 
 def _seeded(seed, shape, dev):
@@ -381,32 +386,51 @@ def _seeded(seed, shape, dev):
                             .astype(np.int32)).to(dev)
 
 
+def _probe_runs(kind, x, s, n, barrier):
+    """(wrapper, name, kernel call, plain call) of every pattern of one
+    probe kernel."""
+    if kind == "floor":
+        return [(probes.floor_probe, v, lambda v=v: probes.floor_probe(
+            x, n, 96, v, barrier), lambda v=v: (probes.floor_probe_ref(
+                x, n, 96, v),)) for v in probes.FLOOR_VARIANTS]
+    if kind == "ops":
+        return [(probes.ops_probe, p, lambda p=p: probes.ops_probe(
+            x, s, n, 28, p, barrier), lambda p=p: probes.ops_probe_ref(
+                x, s, n, 28, p)) for p in probes.OPS_PATTERNS]
+    return [(probes.carry_probe, b, lambda b=b: probes.carry_probe(
+        x, n, b, barrier), lambda b=b: probes.carry_probe_ref(x, n, b))
+        for b in probes.CARRY_BODIES]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("W,barrier", PROBE_CASES)
-def test_probe_kernels_match_plain_version_on_card(cuda_device, W, barrier):
-    """Every pattern of the three probe kernels equals its plain version
-    on seeded int32 inputs; G=9, so the last half-barrier block idles one
-    half.  Each launch is counted."""
-    G, n = 9, 4
+@pytest.mark.parametrize("G", [9, 128])
+@pytest.mark.parametrize("kind,W,barrier", [
+    (k, W, b) for k, cases in PROBE_CASES.items() for W, b in cases])
+def test_probe_kernels_match_plain_version_on_card(cuda_device, kind, W,
+                                                   barrier, G):
+    """Every pattern of each probe kernel equals its plain version
+    (torch.equal) on seeded int32 inputs under each policy the kernel
+    serves.  G=9: the last half-barrier block idles one half, the last
+    warp-policy block (four rows) has warps past G.  At G=128 the low bits
+    of s run through every residue of s & (W-1) (the grab's column).  Each
+    launch is counted."""
+    n = 4
     x = _seeded(1, (G, W), cuda_device)
     s = _seeded(2, (G, 1), cuda_device)
-    runs = [(probes.floor_probe, v, lambda v=v: probes.floor_probe(
-        x, n, 96, v, barrier), lambda v=v: (probes.floor_probe_ref(
-            x, n, 96, v),)) for v in probes.FLOOR_VARIANTS]
-    runs += [(probes.ops_probe, p, lambda p=p: probes.ops_probe(
-        x, s, n, 28, p, barrier), lambda p=p: probes.ops_probe_ref(
-            x, s, n, 28, p)) for p in probes.OPS_PATTERNS]
-    runs += [(probes.carry_probe, b, lambda b=b: probes.carry_probe(
-        x, n, b, barrier), lambda b=b: probes.carry_probe_ref(x, n, b))
-             for b in probes.CARRY_BODIES]
-    for wrapper, name, kernel, plain in runs:
-        launches = wrapper.launches
-        k = kernel()
-        torch.cuda.synchronize()
-        assert wrapper.launches == launches + 1
-        k = k if isinstance(k, tuple) else (k,)
-        for a, b in zip(k, plain()):
-            assert torch.equal(a, b), name
+    if G == 128:
+        s = (s & ~(W - 1)) | (torch.arange(G, device=cuda_device,
+                                           dtype=torch.int32)[:, None] % W)
+    for neg in (False, True) if kind == "ops" else (False,):
+        si = -s.abs() if neg else s
+        for wrapper, name, kernel, plain in _probe_runs(kind, x, si, n,
+                                                        barrier):
+            launches = wrapper.launches
+            k = kernel()
+            torch.cuda.synchronize()
+            assert wrapper.launches == launches + 1
+            k = k if isinstance(k, tuple) else (k,)
+            for a, b in zip(k, plain()):
+                assert torch.equal(a, b), (name, neg)
 
 
 def _small_dbs(tmp, seed=5, glen=40_000, nreads=10):
