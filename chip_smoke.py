@@ -35,20 +35,20 @@ ends with {"ok": false, "phase": <the phase>, "error": <the exception>}:
                 Then the three op-cost probe kernels (csrc/probes.cu, the
                 loops of tools/mosaic_{floor,ops,carry}.py): every pattern
                 against its plain version on seeded int32 inputs at G=9
-                under each kernel's two barrier policies (floor and ops:
-                block and warp at W=64, 128 and, floor only, 256; carry:
-                block at W=64 and 128, half at W=64), at the tools' G=128
-                rows under the warp and half policies, and on the launches
-                timed for the kernels line (G=128, W=128; floor and ops
-                under the warp policy, carry under the block one, the block
-                policy's time printed beside; tolerance 0); the SASS of
-                every instantiation checked for the pattern's instructions,
-                for no barrier and no shared memory in a warp-policy
-                kernel's loops, and, for the block and half
-                instantiations, for the parent's SASS digests; and the
-                three probe tools run at their full shapes (their path;
-                records under a temporary directory), ns per application
-                and bound printed per pattern.
+                and G=128 under each kernel's two barrier policies, block
+                and warp, at W=64, 128 and, floor only, 256 (G=128, W=128:
+                the launches timed for the kernels line, both policies in
+                turns; tolerance 0); the SASS of every instantiation
+                checked for the pattern's instructions, ptxas's registers
+                and spills printed, no barrier in a warp-policy kernel and
+                no shared memory in its loops (the carry dbuf bodies'
+                slot stores excepted), no half-block barrier left, and the
+                block instantiations' parent SASS digests; the three probe
+                tools run at their full shapes (their path; records under
+                a temporary directory), ns per application and bound
+                printed per pattern; and carry60's adds a clock an SM from
+                the carry tool's block record, beside the SM clock read
+                under load, held under the integer peak of peaks.py.
   4. mapping  — the damapper path (device index and seed match on the card,
                 native chain sweep, reporter, wave engine on the card) on
                 BASELINE config 1: a 4.6 Mb reference in contigs and 1,000
@@ -176,19 +176,24 @@ def phase_device(torch):
 
 
 def phase_build():
+    """Builds every library at once; returns ptxas's report of probes.cu,
+    whose registers and spills phase 3 prints."""
     phase("2 build")
     from damapper_tpu_torch import native
     from damapper_tpu_torch.ops import probes, wave_cuda, wave_persistent
     t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor(6) as ex:
+        probe_job = ex.submit(probes.build_report)
         jobs = [ex.submit(wave_cuda.build, True),
                 ex.submit(wave_persistent.build, True),
-                ex.submit(probes.build, True),
                 ex.submit(native.kmer_lib), ex.submit(native.chain_lib),
                 ex.submit(native.radix_lib)]
         for j in jobs:
             j.result()
+        _, report = probe_job.result()
+    print(report.strip())
     print(f"built in {time.time() - t0:.1f}s")
+    return report
 
 
 def _cuda_ms(torch, fn, reps=7):
@@ -526,15 +531,30 @@ PROBE_CASES = {
     "floor": ((64, "block"), (64, "warp"), (128, "block"), (128, "warp"),
               (256, "block"), (256, "warp")),
     "ops": ((64, "block"), (64, "warp"), (128, "block"), (128, "warp")),
-    "carry": ((64, "block"), (64, "half"), (128, "block"))}
+    "carry": ((64, "block"), (64, "warp"), (128, "block"), (128, "warp"))}
 PROBE_ROW_N = 100   # iterations of the launches timed for the kernels line
-# the policy the kernels line times each probe under (the redesigned one)
-PROBE_ROW_BARRIER = {"floor": "warp", "ops": "warp", "carry": "block"}
+# the policy of each probe's route, which the kernels line reports: floor
+# and ops on one warp a row; carry by body, the dbuf bodies' row max on one
+# warp, the carried adds on a block of W threads, which issues them from
+# W/32 warps where one warp would issue them all
+PROBE_ROW_BARRIER = {"floor": dict.fromkeys(("mix", "add"), "warp"),
+                     "ops": dict.fromkeys(
+                         ("elemwise", "roll", "reduce_row", "reduce_scal",
+                          "onehot_grab", "scal_arith", "cond", "butterfly"),
+                         "warp"),
+                     "carry": {"carry60": "block", "3d_minor4": "block",
+                               "concat2w": "block", "dbuf_write": "warp",
+                               "dbuf_soa": "warp"}}
+# carry60 at G=128, W=128 (one row an SM) gives the adds a clock an SM
+CARRY_RATE_SHAPE = (128, 128)
+CARRY_CLOCK_N = 60_000_000   # iterations of the launch the clock is read under
+
 
 # SASS the loop bodies of each pattern's kernel must hold under the block
-# and half policies: (regular expression, least count); W-dependent counts are callables of W.  MNMX
-# matches VIMNMX and the fused VIADDMNMX; carry60 must add 1 to each of its
-# sixty carried registers on every trip of its loop.
+# policy: (regular expression, least count); W-dependent counts are
+# callables of W.  MNMX matches VIMNMX and the fused VIADDMNMX; carry60
+# must add 1 to each of its sixty carried registers on every trip of its
+# loop.
 SASS_NEEDS = {
     ("floor", "mix"): ((r"BAR\.SYNC", 2), (r"LDS", 1), (r"STS", 1),
                        (r"MNMX", 1)),
@@ -556,9 +576,10 @@ SASS_NEEDS = {
     ("carry", "dbuf_soa"): ((r"SHFL", 5), (r"BAR\.SYNC", 2), (r"STS", 1)),
 }
 # ... and under the warp policy (one row a warp), where no kernel may hold
-# a barrier or touch shared memory in its loops: the roll and the grab one
-# shuffle, the butterfly 6·W/32 - 1 shuffles an application, a row
-# reduction one redux.sync, cond one vote
+# a barrier or touch shared memory in its loops (but the dbuf bodies, which
+# store their slot there and never load it in the loop): the roll and the
+# grab one shuffle, the butterfly 6·W/32 - 1 shuffles an application, a row
+# reduction one redux.sync, cond one vote, carry60 60·W/32 in-place adds
 WARP_SASS_NEEDS = {
     ("floor", "mix"): ((r"SHFL", 1), (r"MNMX", 1)),
     ("floor", "add"): ((r"LOP3", 2), (r"IADD", 2)),
@@ -571,10 +592,18 @@ WARP_SASS_NEEDS = {
     ("ops", "cond"): ((r"VOTE", 1),),
     ("ops", "butterfly"): ((r"SHFL", lambda W: 6 * (W // 32) - 1),
                            (r"MNMX", 1)),
+    ("carry", "carry60"): ((r"(?:IADD3|VIADD)\s+(R\d+), \1, 0x1\b",
+                            lambda W: 60 * (W // 32)),),
+    ("carry", "3d_minor4"): ((r"IADD", 2),),
+    ("carry", "concat2w"): ((r"IADD", 2),),
+    ("carry", "dbuf_write"): ((r"REDUX", 1), (r"SHFL", 1), (r"STS", 1)),
+    ("carry", "dbuf_soa"): ((r"REDUX", 1), (r"SHFL", 1), (r"STS", 1)),
 }
-# SASS digests (tools/wave_ab.py sass_digest) of the block- and half-policy
+# the warp kernels that store to shared memory in their loops
+WARP_LOOP_STORES = {("carry", "dbuf_write"), ("carry", "dbuf_soa")}
+# SASS digests (tools/wave_ab.py sass_digest) of the block-policy
 # instantiations as the parent commit of the warp policy (d5f6e6f) built
-# them on the H100 machine's nvcc: the warp policy was added beside them,
+# them on the H100 machine's nvcc: the warp kernels were added beside them,
 # so they must compile to the same code
 PROBE_SASS_NVCC = "Build cuda_12.9.r12.9/compiler.36037853_0"
 PROBE_PARENT_SASS = {
@@ -601,19 +630,14 @@ PROBE_PARENT_SASS = {
     "ops scal_arith W=64 block": "5ee2cf7fe64a1886",
     "ops scal_arith W=128 block": "350eb3967acddf63",
     "carry 3d_minor4 W=64 block": "c436681526a038c0",
-    "carry 3d_minor4 W=64 half": "4660a8b092cf7a41",
     "carry 3d_minor4 W=128 block": "ad2612443912a8ca",
     "carry carry60 W=64 block": "83beea3150d0ff53",
-    "carry carry60 W=64 half": "e1d3aa92a320ffc7",
     "carry carry60 W=128 block": "a4146c42aa7a502a",
     "carry concat2w W=64 block": "e35cba059fc35954",
-    "carry concat2w W=64 half": "9dd930df8db14636",
     "carry concat2w W=128 block": "dd1a706f41e1058e",
     "carry dbuf_soa W=64 block": "b9a9ec9371d3c331",
-    "carry dbuf_soa W=64 half": "7b438bc0b282ab7c",
     "carry dbuf_soa W=128 block": "d4f920b7c996be14",
     "carry dbuf_write W=64 block": "e4dde4e8443c3c76",
-    "carry dbuf_write W=64 half": "212e6ad1c8f72186",
     "carry dbuf_write W=128 block": "1c9a716556430bb3",
 }
 
@@ -636,24 +660,30 @@ def _probe_call(probes, kind, name, inp, n, barrier, plain=False):
             probes.carry_probe(inp, n, name, barrier))
 
 
-def _probe_sass(probes):
+def _probe_sass(probes, report):
     """Checks the loop bodies of every instantiation's SASS for its
     pattern's instructions (nvcc must not have deleted or merged the work
     being timed), that no warp-policy kernel holds a barrier or touches
-    shared memory in its loops, and that the block and half instantiations
-    compile to the parent's SASS; prints the counts."""
+    shared memory in its loops (the dbuf bodies' slot stores excepted), that
+    no half-block barrier is left, and that the block instantiations compile
+    to the parent's SASS; prints the counts and, from ptxas's report of the
+    build, the registers and spills of each."""
     import re
     from damapper_tpu_torch.tools.probe_ab import kernel_key
     from damapper_tpu_torch.tools.wave_ab import (_nvcc, bar_counts,
-                                                  loop_ops, sass_counts,
-                                                  sass_digest)
+                                                  loop_ops, ptxas_report,
+                                                  sass_counts, sass_digest)
     sass = sass_counts(probes.build())
     names = _probe_names(probes)
+    regs = {kernel_key(sym, names): r
+            for sym, r in ptxas_report(report).items()}
     nvcc = subprocess.run([_nvcc()[0], "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()[-1]
     check(nvcc == PROBE_SASS_NVCC, f"the parent's probe SASS digests were "
           f"taken with nvcc {PROBE_SASS_NVCC!r}, this is {nvcc!r}: take "
           f"them anew with tools/probe_ab.py")
+    half = [sym for sym in sass if "HalfBar" in sym]
+    check(not half, f"half-block barrier kernels in the build: {half}")
     seen, same = set(), 0
     for sym, (cnt, text) in sorted(sass.items()):
         key = kernel_key(sym, names)
@@ -672,32 +702,86 @@ def _probe_sass(probes):
                   f"{op} in its loops, the pattern needs {need}")
         if bar == "warp":
             bars = bar_counts(text.splitlines())
-            shared = sum(bool(re.search(r"\b(?:LDS|STS)", ln))
-                         for ln in ops)
-            check(not bars and not shared, f"SASS of {label}: BAR {bars} "
-                  f"in the kernel, {shared} shared-memory accesses in its "
-                  f"loops")
+            shared = r"\bLDS" if (kind, pat) in WARP_LOOP_STORES \
+                else r"\b(?:LDS|STS)"
+            nsh = sum(bool(re.search(shared, ln)) for ln in ops)
+            check(not bars and not nsh, f"SASS of {label}: BAR {bars} in "
+                  f"the kernel, {nsh} of {shared} in its loops")
         else:
             dig = sass_digest(text)
             check(PROBE_PARENT_SASS.get(label) == dig, f"SASS of {label}: "
                   f"digest {dig}, the parent's "
                   f"{PROBE_PARENT_SASS.get(label)}")
             same += 1
+        check(key in regs, f"ptxas's report has no registers for {label}")
+        r, st, ld = regs[key]
         print(f"sass {label}: {cnt} instructions, {len(ops)} in loops: "
-              + ", ".join(f"{op} {c}" for op, c in counts.items()))
+              + ", ".join(f"{op} {c}" for op, c in counts.items())
+              + f"; {r} registers, spill stores {st} B, loads {ld} B")
         seen.add(label)
     want = sum(len(PROBE_CASES[k]) * len(v) for k, v in names.items())
     check(len(seen) == want, f"SASS of {len(seen)} probe kernels found, "
           f"{want} built")
-    check(same == len(PROBE_PARENT_SASS), f"{same} block and half "
-          f"instantiations found, the parent built {len(PROBE_PARENT_SASS)}")
-    print(f"probe SASS: {want} kernels; the {same} block and half "
-          f"instantiations compile to the parent's SASS ({nvcc})")
+    check(same == len(PROBE_PARENT_SASS), f"{same} block instantiations "
+          f"found, the parent built {len(PROBE_PARENT_SASS)}")
+    print(f"probe SASS: {want} kernels; the {same} block instantiations "
+          f"compile to the parent's SASS ({nvcc})")
 
 
-def phase_probes(torch, seed, work):
-    """The three probe kernels against their plain versions, their SASS,
-    then the probe tools at their full shapes (their path).  Returns the
+def _carry_rate(torch, probes, path):
+    """carry60's adds a clock an SM (60·W adds an iteration on the one
+    row an SM holds at G=128), from the carry tool's block record at
+    CARRY_RATE_SHAPE and one long carry60 launch, each over the SM clock
+    nvidia-smi reads while that launch runs (a read counts only if the
+    launch had begun before it and had not ended after it, and it must be
+    within 10% of the card's maximum clock); held under the integer peak
+    of peaks.py."""
+    from damapper_tpu_torch.peaks import INT32_OPS_PER_S, SM_CLOCK_HZ, SMS
+    G, W = CARRY_RATE_SHAPE
+    rec = next(r for r in map(json.loads, path.read_text().splitlines())
+               if (r["name"], r["G"], r["W"], r["barrier"])
+               == ("carry60", G, W, "block"))
+    x0 = torch.zeros((G, W), dtype=torch.int32, device="cuda")
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    probes.carry_probe(x0, CARRY_CLOCK_N, "carry60", "block")
+    e1.record()
+    clocks = []
+    while not e1.query():
+        began = e0.query()
+        smi = subprocess.run(["nvidia-smi",
+                              "--query-gpu=clocks.sm,clocks.max.sm",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60)
+        check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+        if began and not e1.query():
+            clocks.append(tuple(float(v) for v in
+                                smi.stdout.splitlines()[0].split(",")))
+    torch.cuda.synchronize()
+    check(clocks, f"no SM clock read while the {CARRY_CLOCK_N}-iteration "
+          f"carry60 launch ran")
+    clk, clk_max = clocks[len(clocks) // 2]
+    check(clk >= 0.9 * clk_max, f"SM clock {clk:.0f} MHz under the carry60 "
+          f"launch, not near its maximum {clk_max:.0f} MHz (reads {clocks})")
+    long_us = 1e3 * e0.elapsed_time(e1) / CARRY_CLOCK_N
+    peak = INT32_OPS_PER_S / (SMS * SM_CLOCK_HZ)
+    rates = [60 * W / (us * 1e-6 * clk * 1e6)
+             for us in (rec["us_per_iter"], long_us)]
+    print(f"carry60 G={G} W={W} block: {rates[0]:.2f} adds a clock an SM "
+          f"({rec['us_per_iter']:.5f} us an iteration, the tool's slope; "
+          f"one launch of {CARRY_CLOCK_N} iterations {long_us:.5f} us, "
+          f"{rates[1]:.2f} adds a clock) at SM clock {clk:.0f} MHz, the "
+          f"median of {len(clocks)} reads under that launch (max "
+          f"{clk_max:.0f} MHz); peaks.py: {peak:.0f} a clock an SM",
+          flush=True)
+    check(max(rates) <= peak, f"carry60 adds {max(rates):.2f} a clock an "
+          f"SM, over the integer peak of peaks.py ({peak:.0f})")
+
+
+def phase_probes(torch, seed, work, report):
+    """The three probe kernels against their plain versions, their SASS
+    (with ptxas's report of the build), then the probe tools at their full
+    shapes (their path).  Returns the
     kernels-line fields of each probe kernel and its launches in the tools'
     run."""
     phase("3 kernel vs plain version: probes")
@@ -734,14 +818,11 @@ def phase_probes(torch, seed, work):
             check(e == 0, f"probe {kind} {name} {where}: kernel and plain "
                   f"version differ by {e}")
 
-    # G=9: the last half-barrier block has an idle half, the last
-    # warp-policy block warps past G; G=128: the tools' rows under the warp
-    # policy at every W and under the half barrier at the wave launch's
-    # W=64 (the kernels line below holds G=128, W=128 under both policies)
+    # G=9: the last warp-policy block has warps past G; G=128: the tools'
+    # rows under every policy and W
     for kind, pats in names.items():
-        cases = [(9, 5, W, bar) for W, bar in PROBE_CASES[kind]]
-        cases += [(128, PROBE_ROW_N, W, bar) for W, bar in PROBE_CASES[kind]
-                  if bar != "block"]
+        cases = [(G, n, W, bar) for G, n in ((9, 5), (128, PROBE_ROW_N))
+                 for W, bar in PROBE_CASES[kind]]
         for G, n, W, bar in cases:
             for name in pats:
                 for neg in (False, True) if name == "cond" else (False,):
@@ -752,7 +833,7 @@ def phase_probes(torch, seed, work):
                                         plain=True), f"G={G} W={W} {bar}")
         print(f"probe_{kind}: every pattern equal to the plain version at "
               f"(G, n, W, barrier) {cases}", flush=True)
-    _probe_sass(probes)
+    _probe_sass(probes, report)
 
     # the path: the three tools at their full shapes
     for w in wrappers.values():
@@ -785,43 +866,54 @@ def phase_probes(torch, seed, work):
                 print(f"{kind} {nm} G={r['G']} W={r['W']} {r['barrier']}: "
                       f"{per}us/iter {r['us_per_iter']:.4f}, bound "
                       f"{r['bound_ms']:.6f} ms")
+    _carry_rate(torch, probes, outs["carry"])
 
     # the kernels line: one launch per pattern at G=128, W=128,
-    # PROBE_ROW_N iterations, under the kernel's PROBE_ROW_BARRIER policy,
-    # timed, and its output held against the plain version's on the same
-    # inputs; the block policy's launches timed beside it, in turns
+    # PROBE_ROW_N iterations, under each policy the kernel serves in turns,
+    # timed, and each output held against the plain version's on the same
+    # inputs; a kernel's ms is the mean under its routes
+    # (PROBE_ROW_BARRIER), the block policy's mean printed beside it.  No
+    # launch may beat its bound.
     out = {}
     for kind, pats in names.items():
-        ms, pms, bms, bby, blk = [], [], [], [], []
-        bar = PROBE_ROW_BARRIER[kind]
+        served = probes.SERVED[wrappers[kind].__name__]
+        ms = {bar: [] for bar in served}
+        rms, pms, bms, bby = [], [], [], []
         for name in pats:
             inp = inputs(kind, 128, 128)
-            if bar != "block":
-                blk.append(_cuda_ms(torch, lambda: _probe_call(
-                    probes, kind, name, inp, PROBE_ROW_N, "block"))[0])
-            kms, k = _cuda_ms(torch, lambda: _probe_call(
-                probes, kind, name, inp, PROBE_ROW_N, bar))
+            k = {}
+            for bar in served:
+                t, k[bar] = _cuda_ms(torch, lambda: _probe_call(
+                    probes, kind, name, inp, PROBE_ROW_N, bar))
+                ms[bar].append(t)
             torch.cuda.synchronize()
             t0 = time.time()
             r = _probe_call(probes, kind, name, inp, PROBE_ROW_N, "block",
                             plain=True)
             torch.cuda.synchronize()
             pms.append(1e3 * (time.time() - t0))
-            compare(kind, name, k, r, f"G=128 W=128 {bar} (timed)")
-            ms.append(kms)
+            for bar in served:
+                compare(kind, name, k[bar], r, f"G=128 W=128 {bar} (timed)")
             b, by = probes.bound_ms(kind, name, 128, 128, PROBE_ROW_N)
+            rms.append(ms[PROBE_ROW_BARRIER[kind][name]][-1])
+            check(min(m[-1] for m in ms.values()) >= b, f"probe {kind} "
+                  f"{name}: {min(m[-1] for m in ms.values()):.6f} ms, under "
+                  f"its bound {b:.6f} ms: the bound is not one")
             bms.append(b)
             bby.append(by)
-        if blk:
-            print(f"probe_{kind} G=128 W=128 n={PROBE_ROW_N} block: "
-                  + ", ".join(f"{nm} {m:.4f} ms" for nm, m in zip(pats, blk))
-                  + f"; mean {np.mean(blk):.4f} ms")
-        print(f"probe_{kind} G=128 W=128 n={PROBE_ROW_N} {bar}: " + ", ".join(
-            f"{nm} {m:.4f} ms (plain {p:.1f}, bound {b:.6f})"
-            for nm, m, p, b in zip(pats, ms, pms, bms))
-            + f"; mean {np.mean(ms):.4f} ms")
+        for bar in served:
+            print(f"probe_{kind} G=128 W=128 n={PROBE_ROW_N} {bar}: "
+                  + ", ".join(f"{nm} {m:.4f} ms"
+                              for nm, m in zip(pats, ms[bar]))
+                  + f"; mean {np.mean(ms[bar]):.4f} ms")
+        print(f"probe_{kind} G=128 W=128 n={PROBE_ROW_N} routes: "
+              + ", ".join(f"{nm} {PROBE_ROW_BARRIER[kind][nm]} {m:.4f} ms "
+                          f"(plain {p:.1f}, bound {b:.6f})"
+                          for nm, m, p, b in zip(pats, rms, pms, bms))
+              + f"; mean {np.mean(rms):.4f} ms (block "
+              f"{np.mean(ms['block']):.4f} ms)")
         out["probe_" + kind] = dict(
-            max_abs_err=err[kind], ms=float(np.mean(ms)),
+            max_abs_err=err[kind], ms=float(np.mean(rms)),
             plain_ms=float(np.mean(pms)), bound_ms=float(np.mean(bms)),
             bound_by=max(set(bby), key=bby.count))
     print(f"probe phase {time.time() - t_phase:.1f}s")
@@ -1485,7 +1577,7 @@ def run(torch, args) -> None:
     from damapper_tpu_torch.ops import wave_cuda, wave_persistent
     t_start = time.time()
     name, count, card = phase_device(torch)
-    phase_build()
+    probe_report = phase_build()
     kern = {}
     for lay, k in phase_kernel(torch, args.seed).items():
         kern[wave_cuda.KERNEL_NAMES[lay]] = k
@@ -1495,8 +1587,8 @@ def run(torch, args) -> None:
         tmp = pathlib.Path(tmp)
         for d in ("probes", "map", "las", "plan"):
             (tmp / d).mkdir()
-        probe_kern, probe_launches = phase_probes(torch, args.seed,
-                                                  tmp / "probes")
+        probe_kern, probe_launches = phase_probes(
+            torch, args.seed, tmp / "probes", probe_report)
         kern.update(probe_kern)
         launches = phase_mapping(torch, tmp / "map", args.seed, args.glen,
                                  args.nreads)

@@ -23,23 +23,23 @@
 //             barriers), a vote __syncthreads_or.  These are the block rounds
 //             the wave body runs, so the block policy prices them.  All three
 //             kernels serve it.
-//   HalfBar   (probe_carry only; W=64) rows 2b and 2b+1 in the two halves of
-//             a 128-thread block, each half on its own named barrier, as the
-//             lane-packed wave kernels once ran.
-//   WarpBar   (probe_floor, probe_ops) one row g on one warp, kWarpRows rows a
-//             block: lane l holds the V = W/32 consecutive columns
-//             [l*V, l*V + V) in V registers, and no step touches shared
-//             memory or a barrier.  A roll by one column moves the registers
-//             up by one and takes register V-1 of lane l-1 with one
+//   WarpBar   one row g on one warp, kWarpRows rows a block: lane l holds the
+//             V = W/32 consecutive columns [l*V, l*V + V) in V registers,
+//             and no step meets a barrier.  A roll by one column moves the
+//             registers up by one and takes register V-1 of lane l-1 with one
 //             __shfl_sync; a row max folds the V registers, then one
 //             redux.sync (every lane gets the result: the broadcast); the
 //             one-hot grab of column c is register c mod V of lane c/V (a
 //             tree of selects, then one shuffle); cond votes with __any_sync;
 //             the butterfly's shifts below V move within the registers, one
 //             shuffle from lane l+1 for each register that crosses, and a
-//             shift of d*V takes each register from d lanes down.  So the
-//             warp policy prices the warp-wide steps against the block rounds
-//             they would replace.
+//             shift of d*V takes each register from d lanes down.  The carry
+//             bodies carry V columns a lane; the dbuf bodies take column 0's
+//             slot from lane 0 by one shuffle and store the row max from
+//             lanes 0-3 into the row's own slice of shared memory, which
+//             nothing reads before the loop ends.  So the warp policy prices
+//             the warp-wide steps against the block rounds they would
+//             replace.  All three kernels serve it.
 //
 // int32 arithmetic wraps in two's complement, as in JAX: every add that can
 // overflow goes through unsigned (wadd), since signed overflow is undefined
@@ -56,8 +56,9 @@
 // warp-policy kernel holds a barrier.
 //
 // What bounds them on this card: none is bound by bytes (each reads and
-// writes its (G, W) arrays once) or by the integer rate (at most a few
-// hundred operations per thread per iteration on 132 SMs).  They are bound
+// writes its (G, W) arrays once) or by the integer issue rate (at most a
+// few hundred operations per thread per iteration on 132 SMs; carry60
+// comes nearest, see probe_carry below).  They are bound
 // by the latency of dependent chains.  Under the block policy the
 // elementwise chains wait on the ALU latency of one thread, and the rolls,
 // votes and reductions on barrier and shared-memory round trips (PERF.md
@@ -82,18 +83,9 @@ namespace {
 
 using namespace wavebody;
 
-// the barrier policies: the whole block, the named barrier of the 64
-// threads of one half of a 128-thread block, or none (one row a warp)
+// the barrier policies: the whole block, or none (one row a warp)
 struct BlockBar {
   __device__ __forceinline__ void sync() const { __syncthreads(); }
-};
-
-struct HalfBar {
-  int id;   // named barrier 1 or 2 (barrier 0 is __syncthreads')
-
-  __device__ __forceinline__ void sync() const {
-    asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
-  }
 };
 
 struct WarpBar {};
@@ -150,15 +142,6 @@ struct Row<W, BlockBar> {
   __device__ static int g() { return blockIdx.x; }
   __device__ static int t() { return threadIdx.x; }
   __device__ static BlockBar bar() { return BlockBar{}; }
-};
-
-template <>
-struct Row<64, HalfBar> {
-  static constexpr int kThreads = 128, kRows = 2;
-  __device__ static int half() { return threadIdx.x >> 6; }
-  __device__ static int g() { return 2 * blockIdx.x + half(); }
-  __device__ static int t() { return threadIdx.x & 63; }
-  __device__ static HalfBar bar() { return HalfBar{1 + half()}; }
 };
 
 // the row's value at column src: a store to shared memory, a barrier, a
@@ -487,10 +470,14 @@ ops_warp_kernel(const int* __restrict__ xin, const int* __restrict__ s_in,
 // which the Pallas kernel leaves dead, goes to aux so that nvcc keeps it:
 // carry60 the other 59 arrays (59, G, W); 3d_minor4 r; concat2w the second
 // array; dbuf_write db; dbuf_soa the planes (4, G, 192).  The dbuf buffers
-// live in shared memory: each iteration writes the one row slot `at` (what
-// the masked where computes) with the row max from block_reduce.  Bound:
-// issue of the carried adds (carry60: 60 independent adds per thread per
-// iteration), else the row max's two barriers.
+// live in shared memory, as the Pallas kernel's db lives in VMEM: each
+// iteration writes the one row slot `at` (what the masked where computes)
+// with the row max.  Bound: issue of the carried adds (carry60: 60
+// independent adds per column per iteration, 64 instructions a loop trip;
+// a row on four warps issues them on four schedulers, a row on one warp on
+// one), else, for the dbuf bodies, the row max: under the block policy its
+// two barriers and shared-memory round trip, under the warp policy the
+// fold and one redux.sync, with the slot broadcast by one shuffle.
 // ---------------------------------------------------------------------------
 
 enum { CARRY60, MINOR4, CONCAT2W, DBUF_WRITE, DBUF_SOA, NBODY };
@@ -583,10 +570,129 @@ carry_kernel(const int* __restrict__ x0, int* __restrict__ out,
   }
 }
 
+// the warp policy: lane l carries columns [l*V, l*V + V) of its row, V of
+// every carried array a lane.  dbuf: column 0 is lane 0's register 0, so
+// one shuffle gives every lane the slot `at`; lanes 0-3 store the row max
+// (the fold and one redux.sync) to column `lane` of the slot in the row's
+// own slice of shared memory.  Each address is stored by one lane only, and
+// nothing reads the slice inside the loop, so the loop holds no barrier and
+// no shared-memory load; one __syncwarp() after the zeroing and one after
+// the loop order the lanes' stores before the copy-out reads them.
+template <int W, int BODY>
+__global__ void __launch_bounds__((Row<W, WarpBar>::kThreads))
+carry_warp_kernel(const int* __restrict__ x0, int* __restrict__ out,
+                  int* __restrict__ aux, int G, int n) {
+  using R = Row<W, WarpBar>;
+  constexpr int V = W / 32;
+  constexpr bool DB = BODY == DBUF_WRITE || BODY == DBUF_SOA;
+  __shared__ int db[DB ? R::kRows : 1][DB ? 4 * DBUF : 1];
+  const int g = R::g(), l = R::t();
+  if (g >= G) return;
+  const long long gw = (long long)G * W, i0 = (long long)g * W + l * V;
+  int x[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) x[j] = x0[i0 + j];
+  if constexpr (BODY == CARRY60) {
+    int st[60][V];
+#pragma unroll
+    for (int k = 0; k < 60; ++k)
+#pragma unroll
+      for (int j = 0; j < V; ++j) st[k][j] = wadd(x[j], k);
+#pragma unroll 1
+    for (int it = 0; it < n; ++it) {
+#pragma unroll
+      for (int k = 0; k < 60; ++k)
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          st[k][j] = wadd(st[k][j], 1);
+          keep(st[k][j]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) out[i0 + j] = st[0][j];
+#pragma unroll
+    for (int k = 1; k < 60; ++k)
+#pragma unroll
+      for (int j = 0; j < V; ++j) aux[(k - 1) * gw + i0 + j] = st[k][j];
+  } else if constexpr (BODY == MINOR4) {
+    int r[V][4] = {};
+#pragma unroll 1
+    for (int it = 0; it < n; ++it) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        x[j] = wadd(x[j], 1);
+        const bool m = (x[j] & 7) == 0;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          r[j][c] = m ? wadd(r[j][c], 1) : r[j][c];
+          keep(r[j][c]);
+        }
+        keep(x[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      out[i0 + j] = x[j];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) aux[4 * (i0 + j) + c] = r[j][c];
+    }
+  } else if constexpr (BODY == CONCAT2W) {
+    int bb[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) bb[j] = wadd(x[j], 1);
+#pragma unroll 1
+    for (int it = 0; it < n; ++it) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        x[j] = wadd(x[j], 1);
+        bb[j] = wadd(bb[j], 1);
+        keep(x[j]);
+        keep(bb[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      out[i0 + j] = x[j];
+      aux[i0 + j] = bb[j];
+    }
+  } else {   // DBUF_WRITE, DBUF_SOA
+    // lane l zeroes and copies out the words l + 32k of the slice, k < 24,
+    // unrolled: the iteration loop is the kernel's only loop
+    constexpr int K = 4 * DBUF / 32;
+    int* const d = db[threadIdx.x >> 5];
+#pragma unroll
+    for (int k = 0; k < K; ++k) d[l + 32 * k] = 0;
+    __syncwarp();
+#pragma unroll 1
+    for (int it = 0; it < n; ++it) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) x[j] = wadd(x[j], 1);
+      const int m = warp_row_max(x);
+      const int a = __shfl_sync(FULL, x[0], 0) & 127;
+      if (l < 4) d[BODY == DBUF_WRITE ? 4 * a + l : l * DBUF + a] = m;
+#pragma unroll
+      for (int j = 0; j < V; ++j) keep(x[j]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < V; ++j) out[i0 + j] = x[j];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = l + 32 * k;
+      if (BODY == DBUF_WRITE)
+        aux[(long long)g * 4 * DBUF + i] = d[i];
+      else   // plane c = i / DBUF of (4, G, DBUF)
+        aux[(long long)(i / DBUF) * G * DBUF + (long long)g * DBUF +
+            i % DBUF] = d[i];
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
-// dispatch: (W, barrier) -> the instantiation; barrier 0 block, 1 half
-// (W=64 only), 2 warp.  Alt is the kernel's second policy (HalfBar or
-// WarpBar); W=256 only where W256.
+// dispatch: (W, barrier) -> the instantiation; barrier 0 block, 2 warp (1
+// was a half-block policy, now retired: the ids stay, so that a build of an
+// older probes.cu keeps its policies' ids in tools/probe_ab.py); W=256 only
+// where W256.
 // ---------------------------------------------------------------------------
 
 template <bool W256, class F>
@@ -599,15 +705,10 @@ cudaError_t by_width(int W, F&& f) {
   return cudaErrorInvalidValue;
 }
 
-template <bool W256, class Alt, class F>
+template <bool W256, class F>
 cudaError_t by_shape(int W, int barrier, F&& f) {
-  if constexpr (std::is_same<Alt, HalfBar>::value) {
-    if (barrier == 1)
-      return W == 64 ? f(Int<64>{}, HalfBar{0}) : cudaErrorInvalidValue;
-  } else {
-    if (barrier == 2)
-      return by_width<W256>(W, [&](auto w) { return f(w, WarpBar{}); });
-  }
+  if (barrier == 2)
+    return by_width<W256>(W, [&](auto w) { return f(w, WarpBar{}); });
   if (barrier != 0) return cudaErrorInvalidValue;
   return by_width<W256>(W, [&](auto w) { return f(w, BlockBar{}); });
 }
@@ -644,8 +745,14 @@ void floor_one(const int* x, int* out, int G, int n, int nquads,
 template <int W, class Bar, int P>
 void carry_one(const int* x0, int* out, int* aux, int G, int n,
                cudaStream_t st) {
-  carry_kernel<W, Bar, P><<<grid<W, Bar>(G), Row<W, Bar>::kThreads, 0, st>>>(
-      x0, out, aux, G, n);
+  if constexpr (std::is_same<Bar, WarpBar>::value)
+    carry_warp_kernel<W, P>
+        <<<grid<W, Bar>(G), Row<W, Bar>::kThreads, 0, st>>>(x0, out, aux, G,
+                                                             n);
+  else
+    carry_kernel<W, Bar, P>
+        <<<grid<W, Bar>(G), Row<W, Bar>::kThreads, 0, st>>>(x0, out, aux, G,
+                                                             n);
 }
 
 }  // namespace
@@ -655,7 +762,7 @@ extern "C" int probe_floor_launch(const int* x, int* out, int G, int W,
                                   void* stream) {
   if (G <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)by_shape<true, WarpBar>(W, barrier, [&](auto w, auto b) {
+  return (int)by_shape<true>(W, barrier, [&](auto w, auto b) {
     constexpr int Wc = decltype(w)::value;
     using Bar = decltype(b);
     if (add)
@@ -672,7 +779,7 @@ extern "C" int probe_ops_launch(const int* x, const int* s, int* xout,
   if (G <= 0) return 0;
   if (pattern < 0 || pattern >= NPAT) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)by_shape<false, WarpBar>(W, barrier, [&](auto w, auto b) {
+  return (int)by_shape<false>(W, barrier, [&](auto w, auto b) {
     constexpr int Wc = decltype(w)::value;
     using Bar = decltype(b);
     switch (pattern) {
@@ -695,7 +802,7 @@ extern "C" int probe_carry_launch(const int* x0, int* out, int* aux, int G,
   if (G <= 0) return 0;
   if (body < 0 || body >= NBODY) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)by_shape<false, HalfBar>(W, barrier, [&](auto w, auto b) {
+  return (int)by_shape<false>(W, barrier, [&](auto w, auto b) {
     constexpr int Wc = decltype(w)::value;
     using Bar = decltype(b);
     switch (body) {

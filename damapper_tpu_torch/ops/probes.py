@@ -13,17 +13,17 @@ the top of ``csrc/probes.cu``):
   * ``ops_probe``    — mosaic_ops.py:102 (:123) over ``mk_patterns``;
     ``block`` or ``warp``;
   * ``carry_probe``  — mosaic_carry.py:27 (:44) over the five bodies of
-    its ``main``; ``block`` or ``half``.
+    its ``main``; ``block`` or ``warp``.
 
 ``block``: one row per block of W threads, every step across columns
 through shared memory and block barriers, as the wave body's rounds run.
 ``warp``: one row per warp, lane l holding columns [l·W/32, (l+1)·W/32) in
 registers; rolls, grabs and the butterfly's shifts are shuffles, row
-reductions one ``redux.sync``, the vote one ``__any_sync``, and no barrier.
-``half`` (W=64): two rows per 128-thread block on named half-block
-barriers, as the lane-packed wave kernels once ran.  So the probes price a
-wave's block rounds against the warp-wide steps that would replace them.
-A wrapper raises on a policy its kernel does not serve, on any device.
+reductions one ``redux.sync``, the vote one ``__any_sync``, and no barrier
+(the carry bodies' dbuf slots are stored to shared memory that nothing
+reads before the loop ends).  So the probes price a wave's block rounds
+against the warp-wide steps that would replace them.  A wrapper raises on
+a policy its kernel does not serve, on any device.
 
 Beside each, ``*_ref`` is the plain PyTorch version of the same function
 (torch's int32 add wraps in two's complement, as JAX's does and as the
@@ -44,15 +44,17 @@ import ctypes
 import torch
 
 from ..peaks import HBM_BYTES_PER_S, INT32_OPS_PER_S
-from .wave_cuda import CSRC_DIR, lane_device_kinds, nvcc_build
+from .wave_cuda import CSRC_DIR, lane_device_kinds, nvcc_build, ptxas_build
 
 FLOOR_VARIANTS = ("mix", "add")
 OPS_PATTERNS = ("elemwise", "roll", "reduce_row", "reduce_scal",
                 "onehot_grab", "scal_arith", "cond", "butterfly")
 CARRY_BODIES = ("carry60", "3d_minor4", "concat2w", "dbuf_write", "dbuf_soa")
-BARRIERS = ("block", "half", "warp")   # the kernels' barrier ids
+# the launchers' barrier ids (id 1 was a retired half-block policy; the ids
+# stay so that a build of an older probes.cu keeps its policies' ids)
+BARRIERS = {"block": 0, "warp": 2}
 SERVED = {"floor_probe": ("block", "warp"), "ops_probe": ("block", "warp"),
-          "carry_probe": ("block", "half")}
+          "carry_probe": ("block", "warp")}
 DBUF = 192                     # the dbuf bodies' slots per row
 NEG_BIG = -(1 << 30)           # butterfly's fill
 
@@ -195,7 +197,10 @@ def carry_probe_ref(x0, n, body):
 
 # per iteration: (operations per element of (G, W), per row, per launch)
 # counting each jnp operation of the pattern once per element it produces
-# (a roll, a compare, a select and a reduction step each count one)
+# (a roll, a compare, a select and a reduction step each count one); the
+# dbuf bodies count what their result needs, the add, the row max and the
+# slot's & 127, not the masked where over the whole buffer, whose one
+# changed slot is 4 stores
 _FLOOR_QUAD = {"mix": 7, "add": 4}
 
 
@@ -214,8 +219,7 @@ def op_count(kind, name, G, W, n, nops=96, reps=28):
         e, r, c = per[name]
         return n * reps * (e * G * W + r * G + c)
     per = {"carry60": (60, 0), "3d_minor4": (11, 0), "concat2w": (2, 0),
-           "dbuf_write": (2, 1 + DBUF + 4 * DBUF),
-           "dbuf_soa": (2, 1 + DBUF + 4 * DBUF)}
+           "dbuf_write": (2, 1), "dbuf_soa": (2, 1)}
     e, r = per[name]
     return n * (e * G * W + r * G)
 
@@ -250,6 +254,12 @@ _lib = None
 def build(verbose: bool = False):
     """Build csrc/probes.cu into build/torch_kernels/libprobes.so."""
     return nvcc_build(CSRC_DIR / "probes.cu", "libprobes.so", verbose)
+
+
+def build_report():
+    """``build`` under ptxas -v, always compiling; returns (the library's
+    path, ptxas's report)."""
+    return ptxas_build(CSRC_DIR / "probes.cu", "libprobes.so")
 
 
 def bind(lib):
@@ -296,12 +306,11 @@ def _cuda_args(fn, x, W_ok, barrier, n):
         raise ValueError(f"{fn}: x must be (G, W)")
     G, W = (int(d) for d in x.shape)
     _check(fn, "x", x, (G, W), x.device)
-    if W not in W_ok or (barrier == "half" and W != 64):
-        raise ValueError(f"{fn}: W={W} is not served with barrier "
-                         f"{barrier!r} (W in {W_ok}; half: W=64)")
+    if W not in W_ok:
+        raise ValueError(f"{fn}: W={W} is not served (W in {W_ok})")
     if n < 0:
         raise ValueError(f"{fn}: n must be >= 0")
-    return G, W, BARRIERS.index(barrier)
+    return G, W, BARRIERS[barrier]
 
 
 def _raise_on(fn, rc):
@@ -358,7 +367,7 @@ def ops_probe(x, s, n, reps=28, pattern="elemwise", barrier="block"):
 def carry_probe(x0, n, body, barrier="block"):
     """mosaic_carry's kernel over one body: the state made from x0 int32
     (G, W) with W in 64, 128 (``carry_init``), n iterations, under
-    ``barrier`` "block" or "half" (W=64).  Returns (st[0] (G, W) — the
+    ``barrier`` "block" or "warp".  Returns (st[0] (G, W) — the
     Pallas kernel's output when x0 is 0 —, the rest of the state as
     ``aux``, shaped by ``aux_shape``)."""
     fn = "carry_probe"

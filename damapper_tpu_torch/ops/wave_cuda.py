@@ -565,23 +565,34 @@ def nvcc_build(src: pathlib.Path, name: str, verbose: bool = False,
     and the wave body it includes.  verbose=True adds ``-Xptxas -v`` and
     prints its report."""
     so = BUILD_DIR / name
-    if not verbose and so.exists() and so.stat().st_mtime > max(
+    if verbose:
+        so, report = ptxas_build(src, name, flags)
+        print(report.strip())
+        return so
+    if so.exists() and so.stat().st_mtime > max(
             f.stat().st_mtime for f in (src, CSRC_DIR / "wave_body.cuh")):
         return so
+    return _nvcc(src, so, flags)[0]
+
+
+def ptxas_build(src: pathlib.Path, name: str, flags=()):
+    """nvcc_build under ``-Xptxas -v``, always compiling; returns (the
+    library's path, ptxas's report)."""
+    return _nvcc(src, BUILD_DIR / name, [*flags, "-Xptxas", "-v"])
+
+
+def _nvcc(src, so, flags):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = os.environ.get("NVCC") or (
         "/usr/local/cuda/bin/nvcc"
         if os.path.exists("/usr/local/cuda/bin/nvcc") else "nvcc")
     tmp = so.with_suffix(".so.tmp%d" % os.getpid())
-    cmd = [nvcc, *NVCC_FLAGS, *flags] \
-        + (["-Xptxas", "-v"] if verbose else []) + ["-o", str(tmp), str(src)]
+    cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
     os.replace(tmp, so)
-    if verbose:
-        print(r.stderr.strip())
-    return so
+    return so, r.stderr
 
 
 def build(verbose: bool = False) -> pathlib.Path:

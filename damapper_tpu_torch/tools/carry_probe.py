@@ -8,8 +8,12 @@ For each body of mosaic_carry.py's ``main`` (carry60, 3d_minor4, concat2w,
 dbuf_write, dbuf_soa), times one launch of ``ops.probes.carry_probe``
 (``csrc/probes.cu``) from mosaic_carry.py's own state (x0 = 0).  Shapes:
 mosaic_carry.py's (G = 8, 32, 128 at W=128), plus the wave launch's
-(G=128, W=64) under both barrier policies.  The slope of niter and
-5·niter iterations (CUDA events, after a warm-up) gives µs per iteration.
+(G=128, W=64); each under the kernel's two row layouts in turns
+(``block``: one row per block of W threads, the dbuf row max through
+shared memory between two barriers; ``warp``: one row per warp, W/32
+columns a lane in registers, the row max one ``redux.sync``).  The slope
+of niter and 5·niter iterations (CUDA events, after a warm-up) gives µs
+per iteration.
 Records: mosaic_carry.py's keys (``us_per_iter``) plus ``ms`` (the niter
 launch), ``device``, ``power_limit``, ``barrier`` and ``bound_ms``;
 printed, and appended to --out when given.  Without a CUDA card it exits
@@ -35,7 +39,7 @@ def main(argv=None) -> int:
     torch = open_card("carry_probe")
     if torch is None:
         return 2
-    from ..ops.probes import CARRY_BODIES, bound_ms, carry_probe
+    from ..ops.probes import CARRY_BODIES, SERVED, bound_ms, carry_probe
 
     dev = torch.device("cuda")
     info = card(torch)
@@ -44,7 +48,7 @@ def main(argv=None) -> int:
         for G, W in SHAPES:
             x0 = torch.zeros((G, W), dtype=torch.int32, device=dev)
             for name in CARRY_BODIES:
-                for barrier in ("block", "half") if W == 64 else ("block",):
+                for barrier in SERVED["carry_probe"]:
                     ms, per_iter = slope(torch, lambda n: carry_probe(
                         x0, n, name, barrier), args.niter)
                     emit({"name": name, "G": G, "W": W,

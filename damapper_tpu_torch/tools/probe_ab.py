@@ -56,9 +56,11 @@ def kernel_key(sym, names):
     m = re.search(r"(floor|ops|carry)(_warp)?_kernel", sym)
     if not m:
         return None
+    bar = "warp" if m.group(2) else "block" if "BlockBar" in sym else None
+    if bar is None:
+        return None   # a policy this tree no longer has
     kind = m.group(1)
     lits = re.findall(r"L[ib](\d+)E", sym)
-    bar = "warp" if m.group(2) else "half" if "HalfBar" in sym else "block"
     return kind, names[kind][int(lits[-1])], int(lits[0]), bar
 
 
@@ -166,7 +168,7 @@ def main(argv=None) -> int:
             x, s = ints((G, W)), ints((G, 1))
             want = None
             for tag in tags:
-                for bid, barrier in enumerate(probes.BARRIERS):
+                for barrier, bid in probes.BARRIERS.items():
                     xo, so = torch.empty_like(x), torch.empty_like(s)
                     go = launcher(libs[tag], kind, name, bid, x, s, xo, so)
                     rc = go(niter)

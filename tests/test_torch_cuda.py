@@ -377,7 +377,7 @@ PROBE_CASES = {
     "floor": [(64, "block"), (64, "warp"), (128, "block"), (128, "warp"),
               (256, "block"), (256, "warp")],
     "ops": [(64, "block"), (64, "warp"), (128, "block"), (128, "warp")],
-    "carry": [(64, "block"), (64, "half"), (128, "block")]}
+    "carry": [(64, "block"), (64, "warp"), (128, "block"), (128, "warp")]}
 
 
 def _seeded(seed, shape, dev):
@@ -410,8 +410,8 @@ def test_probe_kernels_match_plain_version_on_card(cuda_device, kind, W,
                                                    barrier, G):
     """Every pattern of each probe kernel equals its plain version
     (torch.equal) on seeded int32 inputs under each policy the kernel
-    serves.  G=9: the last half-barrier block idles one half, the last
-    warp-policy block (four rows) has warps past G.  At G=128 the low bits
+    serves.  G=9: the last warp-policy block (four rows) has warps past
+    G.  At G=128 the low bits
     of s run through every residue of s & (W-1) (the grab's column).  Each
     launch is counted."""
     n = 4

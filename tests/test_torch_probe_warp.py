@@ -1,5 +1,5 @@
 """The warp policy of the op-cost probes (csrc/probes.cu), modelled on the
-CPU.
+CPU (``probe_carry``'s in tests/test_torch_carry_warp.py).
 
 Under the warp policy ``probe_floor`` and ``probe_ops`` hold one (G, W) row
 on one warp: lane l owns the V = W/32 consecutive columns [l·V, l·V + V) in
@@ -321,9 +321,9 @@ CALLS = {
 @pytest.mark.parametrize("fn", sorted(CALLS))
 @pytest.mark.parametrize("barrier", ["block", "half", "warp", "grid"])
 def test_wrapper_serves_two_policies(fn, barrier):
-    """Each wrapper serves two policies (floor and ops: block and warp;
-    carry: block and half) and raises on any other, whatever the device;
-    CPU tensors take the plain version."""
+    """Each wrapper serves two policies, block and warp, and raises on any
+    other (the retired half-block policy too), whatever the device; CPU
+    tensors take the plain version."""
     x = torch.from_numpy(_ints(3, (2, 64)))
     if barrier in probes.SERVED[fn]:
         got = CALLS[fn](x, barrier)
@@ -334,7 +334,7 @@ def test_wrapper_serves_two_policies(fn, barrier):
     else:
         with pytest.raises(ValueError, match="barrier must be one of"):
             CALLS[fn](x, barrier)
-    assert len(probes.SERVED[fn]) == 2
+    assert probes.SERVED[fn] == ("block", "warp")
 
 
 def _warp_source():
@@ -348,12 +348,16 @@ def _warp_source():
 
 def test_warp_source_has_no_barrier_or_shared_memory():
     """The warp policy's code holds no barrier, vote on a barrier, or
-    shared memory: one row lives on one warp."""
+    shared memory: one row lives on one warp.  carry_warp_kernel's one
+    shared array is its dbuf slice, which nothing reads in the loop
+    (tests/test_torch_carry_warp.py pins how it is used)."""
     parts = _warp_source()
     assert set(parts) == {"warp_roll", "warp_row_max", "warp_grab",
                           "warp_butterfly", "floor_warp_kernel",
-                          "ops_warp_kernel"}
+                          "ops_warp_kernel", "carry_warp_kernel"}
     for name, body in parts.items():
+        if name == "carry_warp_kernel":
+            body = body.replace("__shared__ int db[", "", 1)
         for gone in ("__syncthreads", "bar.", "__shared__", "exchange(",
                      "block_reduce"):
             assert gone not in body, (name, gone)
@@ -378,8 +382,10 @@ def test_probe_ab_names_each_kernel_and_needs_a_card(monkeypatch, tmp_path,
             ("floor", "add", 256, "warp"),
         ns + "12floor_kernelILi128ENS_8BlockBarELb0EEEvPKiPiiii":
             ("floor", "mix", 128, "block"),
-        ns + "12carry_kernelILi64ENS_7HalfBarELi4EEEvPKiPiS4_ii":
-            ("carry", "dbuf_soa", 64, "half"),
+        ns + "17carry_warp_kernelILi64ELi4EEEvPKiPiS2_ii":
+            ("carry", "dbuf_soa", 64, "warp"),
+        ns + "12carry_kernelILi128ENS_8BlockBarELi0EEEvPKiPiS4_ii":
+            ("carry", "carry60", 128, "block"),
         ns + "20persistent_kernelILi64ELb0EEEvv": None,
     }
     for sym, key in cases.items():

@@ -24,6 +24,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from damapper_tpu_torch.ops import probes
+from damapper_tpu_torch.peaks import INT32_OPS_PER_S
 
 torch.set_num_threads(1)
 
@@ -245,3 +246,19 @@ def test_bound_counts_the_pattern_definition():
     ms, by = probes.bound_ms("floor", "mix", 128, 128, 20000)
     assert by == "operations" and ms > 0
     assert probes.bound_ms("carry", "carry60", 8, 128, 0)[1] == "bytes"
+    # the integer rate: the H100's dispatch ceiling, 4 schedulers x 32 lanes
+    # a clock on 132 SMs at 1.98 GHz (carry60 ran 79.9-88.3 adds a clock an
+    # SM on the card, above the 64 of the guide's table)
+    assert INT32_OPS_PER_S == 132 * 4 * 32 * 1.98e9
+    # dbuf: the add and the row max per element, the slot's & 127 per row;
+    # the masked where over the buffer is not work the result needs
+    ops = probes.op_count("carry", "dbuf_write", 128, 128, 100)
+    assert ops == 100 * (2 * 128 * 128 + 128)
+    assert probes.op_count("carry", "dbuf_soa", 128, 128, 100) == ops
+    # ... so its bound is the bytes: x in and out, the (128, 192, 4) aux
+    ms, by = probes.bound_ms("carry", "dbuf_write", 128, 128, 100)
+    nbytes = 4 * (2 * 128 * 128 + 128 * 192 * 4)
+    # rel 1e-12: the same quotient, the float operations in another order
+    assert by == "bytes" \
+        and ms == pytest.approx(1e3 * nbytes / 3.35e12, rel=1e-12)
+    assert ops / INT32_OPS_PER_S < nbytes / 3.35e12

@@ -401,8 +401,8 @@ def test_source_note_names_the_round_barriers():
     barrier (round 0) or a Rounds::meet, which meets at the block barrier.
     Every wave kernel, the lane-packed rows' too, meets there: the named
     half-block barrier (HalfBar, bar.sync id, 64) and the lane-packed
-    kernels that ran on it are gone, and only the probes keep it, beside
-    the block barrier, to price them."""
+    kernels that ran on it are gone, from the probes too, which price the
+    block barrier beside one row a warp."""
     lines = BODY.splitlines()
     note = dict(re.findall(r"round (0|A|B) \(:(\d+)\)", BODY))
     assert set(note) == {"0", "A", "B"}
@@ -413,13 +413,12 @@ def test_source_note_names_the_round_barriers():
     assert "__syncthreads();" in meet[:meet.index("\n  }")]
     csrc = pathlib.Path(__file__).resolve().parent.parent \
         / "damapper_tpu_torch" / "csrc"
-    for f in ("wave.cu", "wave_persistent.cu", "wave_body.cuh"):
+    for f in ("wave.cu", "wave_persistent.cu", "wave_body.cuh", "probes.cu"):
         text = (csrc / f).read_text()
         for gone in ("HalfBar", "bar.sync %0, 64", "_lp_kernel"):
             assert gone not in text, (f, gone)
     probes = (csrc / "probes.cu").read_text()
-    assert "struct BlockBar" in probes and "struct HalfBar" in probes
-    assert "bar.sync %0, 64;" in probes
+    assert "struct BlockBar" in probes and "struct WarpBar" in probes
 
 
 # ---------------------------------------------------------------------------
