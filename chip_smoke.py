@@ -61,6 +61,11 @@ ends with {"ok": false, "phase": <the phase>, "error": <the exception>}:
                 card; every run's .las records must equal the classic run's;
                 64 of each run's device lanes, sampled from --seed, are
                 re-aligned by the host oracle and must match path and trace.
+                The classic run dumps its rounds (DAMAPPER_WAVE_DUMP), and
+                the port's replay tool (tools/wave_replay.py) replays every
+                dumped seed on the card, each round as its own batch, and
+                holds the lanes of the first 100 reads (an abase range in
+                each orientation) to the oracle: no lane may differ.
   4b. genome  — bench.py's default dataset (140 Mb reference in 280 contigs,
                 the same reads): classic with the device index twice (the
                 second run must hit the reference-index cache) and with the
@@ -95,12 +100,21 @@ ends with {"ok": false, "phase": <the phase>, "error": <the exception>}:
                 the card (the reference index sharded over the ranks), the
                 merged .las equal to phase 7's direct run; each rank's
                 mapping wall and cross-rank bytes a job printed.
+  9. bench    — the port's timed entry point, python -m
+                damapper_tpu_torch.bench, in a subprocess on BASELINE config
+                1 (BENCH_GLEN=--glen, BENCH_NREADS=--nreads, two repeats,
+                both variants, BENCH_GATE=sample): its JSON line, printed,
+                must have no error, .las records equal to its gate runs' for
+                the run, -n.95 -C (both files) and -p (and the -p track's
+                bytes), no sampled lane differing from the oracle, and
+                wave_lanes launched.
   6. kernels  — one JSON line with each ported kernel's launches on its
                 path's run (a wave kernel's mapping run; the probe tools'
                 run), its agreement with the plain version, and its time
                 beside its bound and the plain version's time; launches_plan
                 is its count over phase 7's ranks, launches_mesh over phase
-                8b's mesh run, launches_coop over phase 8c's ranks.
+                8b's mesh run, launches_coop over phase 8c's ranks,
+                launches_bench over phase 9's best timed repeat.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -975,11 +989,13 @@ def _read_launches():
             _counters()}
 
 
-def _map_once(torch, work, seed, nreads, mode, switches, kernel, tag=None):
+def _map_once(torch, work, seed, nreads, mode, switches, kernel, tag=None,
+              dump=None):
     """One mapping run of the dataset in `work` in one wave mode, with the
     oracle check of 64 sampled device lanes; tag names the run when it is
     not the mode's own.  The index backend is the default (device) unless
     switches ask for the host; every index built must lie on the card.
+    dump: a file the run's rounds are dumped to (DAMAPPER_WAVE_DUMP).
     Returns (launches by kernel, .las record keys, LAST_STATS)."""
     from damapper_tpu_torch.io import las as lasio
     from damapper_tpu_torch.ops import device_index as dix
@@ -1010,6 +1026,8 @@ def _map_once(torch, work, seed, nreads, mode, switches, kernel, tag=None):
     out.mkdir()
     wave_engine.WaveEngine._batch_inner = recording
     dix.device_sort_kmers = recording_sort
+    if dump is not None:
+        os.environ["DAMAPPER_WAVE_DUMP"] = str(dump)
     try:
         cfg = mapper.DamapperConfig(kmer=20, ave_error=.85, **switches)
         torch.cuda.synchronize()
@@ -1025,6 +1043,7 @@ def _map_once(torch, work, seed, nreads, mode, switches, kernel, tag=None):
     finally:
         wave_engine.WaveEngine._batch_inner = orig
         dix.device_sort_kmers = orig_sort
+        os.environ.pop("DAMAPPER_WAVE_DUMP", None)
     st = dict(mapper.LAST_STATS)
     peak = torch.cuda.max_memory_allocated()
     recs, _ = lasio.read_las(a_path)
@@ -1084,6 +1103,44 @@ def _map_once(torch, work, seed, nreads, mode, switches, kernel, tag=None):
     return launches, [r.key() for r in recs], st
 
 
+# the reads whose lanes the replay of phase 4's dump holds to the oracle
+REPLAY_READS = 100
+
+
+def _replay(torch, work, dump, st):
+    """Replay the classic run's dumped rounds with the port's replay tool
+    on the card: the engine replays every seed, each as its round's batch,
+    and the oracle checks the lanes of the first REPLAY_READS reads (an
+    abase range in each orientation); no lane may differ."""
+    from damapper_tpu_torch.ops.spec import new_align_spec
+    from damapper_tpu_torch.pipeline import mapper
+    from damapper_tpu_torch.tools import wave_replay
+    t0 = time.time()
+    calls = wave_replay.read_dump(dump)
+    nseeds = sum(map(len, calls))
+    check(nseeds == st["n_lanes"], f"the dump holds {nseeds} seeds, the run "
+          f"aligned {st['n_lanes']} lanes")
+    reads = mapper.read_block(str(work / "reads.db"), [], 0)
+    ref = mapper.read_block(str(work / "ref.dam"), [], 0)
+    hi = int(reads.reads["boff"][min(REPLAY_READS, reads.nreads - 1)])
+    comp = len(reads.seq)
+    ranges = [f"0:{hi}", f"{comp}:{comp + hi}"]
+    spec = new_align_spec(.85, 100, ref.freq, True)
+    bad, checked, eng = wave_replay.replay(calls, reads, ref, spec, None,
+                                           wave_replay.parse_ranges(ranges))
+    for ci, li, s, fld, _, _ in bad[:10]:
+        print(f"LANE MISMATCH call {ci} lane {li} field {fld} seed {s}")
+    print(f"replay of the classic run's dump: {len(calls)} calls, {nseeds} "
+          f"seeds replayed on {eng.device} (launches "
+          f"{ {k: v for k, v in eng.launches.items() if v} }), {checked} "
+          f"lanes of the first {REPLAY_READS} reads ({ranges}) held to the "
+          f"oracle, {len(bad)} differ; {time.time() - t0:.1f}s", flush=True)
+    check(eng.device.type == "cuda" and eng.launches["wave_lanes"] > 0,
+          "the replay launched no wave_lanes on the card")
+    check(checked > 0 and not bad, f"{len(bad)} replayed lanes differ from "
+          f"the oracle")
+
+
 # runs of the classic mode beside the six wave modes: (name, switches)
 CLASSIC_RUNS = (("classic, host index", dict(index_backend="host")),
                 ("classic, device chain", dict(chain_backend="device")))
@@ -1097,10 +1154,14 @@ def phase_mapping(torch, work, seed, glen, nreads):
     print(f"dataset: {glen:,} bp reference, {nreads} reads "
           f"({time.time() - t0:.1f}s to simulate and write)")
     launches, keys, stats = {}, {}, {}
+    dump = work / "classic_rounds.pkl"
     for mode, switches, kernel in MODES:
-        got, keys[mode], stats[mode] = _map_once(torch, work, seed, nreads,
-                                                 mode, switches, kernel)
+        got, keys[mode], stats[mode] = _map_once(
+            torch, work, seed, nreads, mode, switches, kernel,
+            dump=dump if mode == "classic" else None)
         launches[kernel] = got[kernel]
+        if mode == "classic":
+            _replay(torch, work, dump, stats[mode])
     for tag, switches in CLASSIC_RUNS:
         _, keys[tag], stats[tag] = _map_once(
             torch, work, seed, nreads, "classic", switches, "wave_lanes",
@@ -1572,6 +1633,47 @@ def phase_mesh(torch, tmp, seed, nreads, name, genome_keys, direct):
     return launches, coop
 
 
+def phase_bench(torch, work, seed, glen, nreads):
+    """The port's timed entry point (damapper_tpu_torch.bench) in a
+    subprocess on BASELINE config 1, two repeats, both variants, the
+    sample gate; its JSON line must show every gate passed and row 1
+    launched.  Returns its JSON line."""
+    phase("9 bench: damapper_tpu_torch.bench on BASELINE config 1")
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BENCH_", "DAMAPPER_"))}
+    env.update(BENCH_GLEN=str(glen), BENCH_NREADS=str(nreads),
+               BENCH_SEED=str(seed), BENCH_REPEATS="2", BENCH_VARIANTS="1",
+               BENCH_GATE="sample", BENCH_DATA=str(work),
+               PYTHONPATH=str(HERE) + os.pathsep + env.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, "-m", "damapper_tpu_torch.bench"],
+                       cwd=str(work), env=env, capture_output=True, text=True,
+                       timeout=600)
+    print(r.stderr[-3000:], end="")
+    lines = r.stdout.strip().splitlines()
+    check(bool(lines), f"the bench printed nothing (exit {r.returncode})")
+    res = json.loads(lines[-1])
+    print(lines[-1])
+    print(f"bench phase {time.time() - t0:.1f}s")
+    check("error" not in res, f"the bench failed: {res.get('error')}")
+    check(r.returncode == 0, f"the bench exited {r.returncode}")
+    var = res.get("variants", {})
+    check(res["las_identical"] and set(var) == {"n95_C", "profile"}
+          and all(v["las_identical"] for v in var.values()),
+          "a bench run's .las records differ from its gate's")
+    check(var["profile"]["profile_track_identical"],
+          "the -p track differs from its gate's")
+    check(all(x["oracle_sample"]["lanes"] > 0
+              and x["oracle_sample"]["differ"] == 0
+              for x in (res, *var.values())),
+          "sampled lanes differ from the oracle")
+    check(res["wave_lanes"] > 0 and res["kernel_launches"]["wave_lanes"] > 0,
+          "the bench's timed run launched no wave_lanes")
+    check(res["platform"] == "gpu", "the bench did not run on the card")
+    return res
+
+
 def run(torch, args) -> None:
     """Every phase, then the kernels line and the passing last line."""
     from damapper_tpu_torch.ops import wave_cuda, wave_persistent
@@ -1601,6 +1703,9 @@ def run(torch, args) -> None:
             torch, tmp / "map", tmp / "plan", args.nreads, name)
         mesh_launches, coop_launches = phase_mesh(
             torch, tmp, args.seed, args.nreads, name, genome_keys, direct)
+        (tmp / "bench").mkdir()
+        bench = phase_bench(torch, tmp / "bench", args.seed, args.glen,
+                            args.nreads)
     phase("6 kernels")
     print(f"total {time.time() - t_start:.1f}s")
     src = "damapper_tpu_torch/csrc/"
@@ -1618,6 +1723,7 @@ def run(torch, args) -> None:
                     launches_plan=plan_launches.get(nm, 0),
                     launches_mesh=mesh_launches.get(nm, 0),
                     launches_coop=coop_launches.get(nm, 0),
+                    launches_bench=bench["kernel_launches"].get(nm, 0),
                     match=kern[nm]["max_abs_err"] == 0, **kern[nm],
                     library_ms=None)
                for nm, f, tpu in rows]

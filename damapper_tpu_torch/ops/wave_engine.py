@@ -20,12 +20,17 @@ lanes a persistent kernel flags as overflowed (most often a window miss) are
 re-run on the classic kernel of the same layout at the same band before any
 of them reaches the oracle (the JAX engine's retry tier and its classic
 twin, wave_pallas.py:2369-2416).
+
+DAMAPPER_WAVE_DUMP=<file> appends every round's seed list to <file>, one
+pickle a round, as the JAX engine does; damapper_tpu_torch.tools.wave_replay
+replays such a dump, this engine against the host oracle.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import pickle
 import time
 from dataclasses import dataclass
 
@@ -332,6 +337,14 @@ class WaveEngine:
         self.n_total += n
         TS = self.spec.trace_space
         out = [None] * n
+        dump = os.environ.get("DAMAPPER_WAVE_DUMP")
+        if dump:
+            # every round's seeds, tiny host rounds included, appended as
+            # one pickle a call (the JAX engine's format) for an offline
+            # engine-against-oracle replay (tools.wave_replay); a round is
+            # one call however many dp shards its launches take
+            with open(dump, "ab") as fh:
+                pickle.dump(seeds, fh)
 
         if n < self.host_min:
             self.n_hostmin += n

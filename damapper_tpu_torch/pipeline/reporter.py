@@ -65,6 +65,28 @@ def _upload_section(flat, boffs, rlens, device):
                            device)
 
 
+def align_memory_a(reads_db):
+    """The A side of the wave's sequence memories, [reads | comp reads]:
+    every read reverse-complemented at its own offset in a second copy.
+    Returns (flat_a, comp_off, boffs, rlens): the uint8 memory, the
+    offset of the complemented copy and the reads' offsets and lengths in
+    flat_a (both copies), as _upload_section takes them.  The B side is
+    the reference's ``seq`` as it is."""
+    rd_seq = reads_db.seq
+    rb = reads_db.reads["boff"]
+    rl = reads_db.reads["rlen"]
+    # the complement is one vectorized pass (3 - base, sentinels stay 4);
+    # the per-read reversal a slice loop (reads are independent intervals)
+    comp_seq = np.where(rd_seq <= 3, 3 - rd_seq, rd_seq).astype(np.uint8)
+    for i in range(reads_db.nreads):
+        o = int(rb[i])
+        ln = int(rl[i])
+        comp_seq[o:o + ln] = comp_seq[o:o + ln][::-1]
+    comp_off = len(rd_seq)
+    return (np.concatenate([rd_seq, comp_seq]), comp_off,
+            np.concatenate([rb, rb + comp_off]), np.concatenate([rl, rl]))
+
+
 def _ref_seq_cached(ref_db, device):
     def upload():
         return _upload_section(ref_db.seq, ref_db.reads["boff"],
@@ -424,24 +446,9 @@ class Reporter:
         cache (_ref_seq_cache) instead of being re-shipped per block (the
         upload analog of the ref-index cache)."""
         nreads = reads_db.nreads
-        rd_seq = reads_db.seq
-        rb = reads_db.reads["boff"]
-        rl = reads_db.reads["rlen"]
-        # reverse-complemented copy of every read, same offsets: the
-        # complement is one vectorized pass (3 - base, sentinels stay 4);
-        # the per-read REVERSAL remains a slice loop (reads are
-        # independent intervals)
-        comp_seq = np.where(rd_seq <= 3, 3 - rd_seq, rd_seq) \
-            .astype(np.uint8)
-        for i in range(nreads):
-            o = int(rb[i])
-            ln = int(rl[i])
-            comp_seq[o:o + ln] = comp_seq[o:o + ln][::-1]
+        flat_a, comp_off, boffs, rlens = align_memory_a(reads_db)
         ref_seq = ref_db.seq
-        flat_a = np.concatenate([rd_seq, comp_seq])
-        comp_off = len(rd_seq)
-        dev_a = _upload_section(flat_a, np.concatenate([rb, rb + comp_off]),
-                                np.concatenate([rl, rl]), self.engine.device)
+        dev_a = _upload_section(flat_a, boffs, rlens, self.engine.device)
         dev_b = _ref_seq_cached(ref_db, self.engine.device)
 
         tasks = []

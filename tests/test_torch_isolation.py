@@ -36,7 +36,17 @@ def _modules():
 def _forbidden(name):
     return (name == "jax" or name.startswith(("jax.", "jaxlib"))
             or name == "damapper_tpu" or name.startswith("damapper_tpu.")
-            or name == "tools" or name.startswith("tools."))
+            or name == "tools" or name.startswith("tools.")
+            or name == "tests" or name.startswith("tests."))
+
+
+def test_entry_points_are_covered():
+    """The timed entry point and the replay tool are among the modules and
+    sources the checks below walk."""
+    for mod in ("damapper_tpu_torch.bench",
+                "damapper_tpu_torch.tools.wave_replay"):
+        assert mod in _modules()
+        assert PKG.parent / (mod.replace(".", "/") + ".py") in SOURCES
 
 
 def test_importing_every_module_loads_no_jax():
@@ -46,7 +56,8 @@ def test_importing_every_module_loads_no_jax():
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'damapper_tpu' or "
             "m.startswith('damapper_tpu.') or m == 'tools' or "
-            "m.startswith('tools.'))\n"
+            "m.startswith('tools.') or m == 'tests' or "
+            "m.startswith('tests.'))\n"
             "print(len(sys.modules), bad)\n"
             "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
