@@ -108,13 +108,33 @@ ends with {"ok": false, "phase": <the phase>, "error": <the exception>}:
                 the run, -n.95 -C (both files) and -p (and the -p track's
                 bytes), no sampled lane differing from the oracle, and
                 wave_lanes launched.
+  10. tune    — the port's roundout of its tuning tools (damapper_tpu_torch/
+                tools/), their records under a temporary directory: the
+                build gate of all six wave modes (each built and run on 8
+                lanes against the oracle in its own process), the clip fuzz
+                of all six modes over 2 seeds x 256 clip cases (0
+                mismatches with the oracle), the engine-level mode A/B at
+                256 lanes of 6 kb reads (records equal across modes), the
+                picker on those rows and the gate's status with --dry-run
+                (the pick, and whether it matches the committed mode file),
+                the join A/B on phase 4b's 140 Mb block (hits equal in all
+                five joins) and the dense twin's switch swept at 128-2,048
+                lanes (records equal across the three builds).
   6. kernels  — one JSON line with each ported kernel's launches on its
                 path's run (a wave kernel's mapping run; the probe tools'
                 run), its agreement with the plain version, and its time
                 beside its bound and the plain version's time; launches_plan
                 is its count over phase 7's ranks, launches_mesh over phase
                 8b's mesh run, launches_coop over phase 8c's ranks,
-                launches_bench over phase 9's best timed repeat.
+                launches_bench over phase 9's best timed repeat,
+                launches_tune over phase 10's in-process tools (the clip
+                fuzz, the mode A/B and the sweep).
+
+Phase 1 also prints the measured mode file and the mode a default engine
+resolves to (ops.wave_engine.resolve_wave_mode); from phase 3 on the run pins
+the classic mode (DAMAPPER_WAVE_PERSISTENT/PACKOPS/LANEPACK=0, which an
+explicit mode argument still overrides), so that a mode file cannot change
+what the phases count as the classic mode's launches.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -186,6 +206,7 @@ def phase_device(torch):
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip().splitlines()[0]
     print(card)
+    default_mode(torch)
     return name, count, card
 
 
@@ -195,13 +216,16 @@ def phase_build():
     phase("2 build")
     from damapper_tpu_torch import native
     from damapper_tpu_torch.ops import probes, wave_cuda, wave_persistent
+    from damapper_tpu_torch.tools import wave_sweep
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(6) as ex:
+    with concurrent.futures.ThreadPoolExecutor(7) as ex:
         probe_job = ex.submit(probes.build_report)
         jobs = [ex.submit(wave_cuda.build, True),
                 ex.submit(wave_persistent.build, True),
                 ex.submit(native.kmer_lib), ex.submit(native.chain_lib),
-                ex.submit(native.radix_lib)]
+                ex.submit(native.radix_lib),
+                # phase 10's forced builds of the dense twin's switch
+                ex.submit(wave_sweep.build_forced)]
         for j in jobs:
             j.result()
         _, report = probe_job.result()
@@ -1643,7 +1667,8 @@ def phase_bench(torch, work, seed, glen, nreads):
     torch.cuda.empty_cache()
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("BENCH_", "DAMAPPER_"))}
-    env.update(BENCH_GLEN=str(glen), BENCH_NREADS=str(nreads),
+    env.update(CLASSIC_PIN,
+               BENCH_GLEN=str(glen), BENCH_NREADS=str(nreads),
                BENCH_SEED=str(seed), BENCH_REPEATS="2", BENCH_VARIANTS="1",
                BENCH_GATE="sample", BENCH_DATA=str(work),
                PYTHONPATH=str(HERE) + os.pathsep + env.get("PYTHONPATH", ""))
@@ -1674,12 +1699,131 @@ def phase_bench(torch, work, seed, glen, nreads):
     return res
 
 
+# the classic mode, pinned for every phase from 3 on (an explicit mode
+# argument still wins over it)
+CLASSIC_PIN = {"DAMAPPER_WAVE_PERSISTENT": "0", "DAMAPPER_WAVE_PACKOPS": "0",
+               "DAMAPPER_WAVE_LANEPACK": "0"}
+
+
+def default_mode(torch):
+    """Print the measured mode file and the mode a default engine on the
+    card resolves to, before the classic mode is pinned."""
+    from damapper_tpu_torch.ops import wave_engine as we
+    mf = we.mode_file_for(torch.device("cuda"))
+    try:
+        raw = json.loads(we.MODE_FILE.read_text())
+    except (OSError, ValueError):
+        raw = None
+    knobs, src = we.resolve_wave_mode("cuda", {}, os.environ, mf)
+    mode = (("persistent" if knobs["persistent"] else "classic")
+            + ("+lanepack" if knobs["lanepack"] else
+               "+packops" if knobs["packops"] else ""))
+    print(f"mode file {we.MODE_FILE.name}: {raw if raw else 'none'}"
+          f"{'' if mf or not raw else ' (not for this card)'}; a default "
+          f"engine runs {mode} (W={knobs['band_cap']}, host_min="
+          f"{knobs['host_min']}) from {src['mode']}")
+    return mode
+
+
+@contextlib.contextmanager
+def pinned(env):
+    """os.environ with ``env`` set, restored afterwards."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# phase 10's sizes: clip fuzz seeds x cases, mode A/B lanes of RLEN bases,
+# the dense switch's lane counts
+TUNE_FUZZ = (2, 256)
+TUNE_LANES, TUNE_RLEN = 256, 6000
+TUNE_DENSE = "128,256,512,768,1024,2048"
+
+
+def _tool(mod, argv, what):
+    """Run a tool's main in this process; a non-zero exit fails the
+    phase."""
+    print(f"--- {mod.__name__.rsplit('.', 1)[-1]} {' '.join(argv)}",
+          flush=True)
+    t0 = time.time()
+    rc = mod.main(argv)
+    print(f"({time.time() - t0:.1f}s)", flush=True)
+    check(rc == 0, f"{what} (exit {rc})")
+
+
+def phase_tune(torch, work, genome):
+    """The tuning tools on the card (phase 10); their records under work.
+    Returns the wave kernels' launches by the tools run in this process."""
+    phase("10 tune: build gate, clip fuzz, mode A/B, pick, join A/B, "
+          "dense switch")
+    from damapper_tpu_torch.tools import (clip_fuzz, pick_wave_mode,
+                                          wave_modes, wave_sweep)
+    t0 = time.time()
+    status, rows = work / "wave_build_status.json", work / "modes.jsonl"
+    r = subprocess.run([sys.executable, "-m",
+                        "damapper_tpu_torch.tools.wave_build_gate",
+                        "--status", str(status), "--timeout", "180"],
+                       cwd=str(HERE), capture_output=True, text=True,
+                       timeout=1200)
+    print(r.stdout[-4000:], end="")
+    gate = json.loads(status.read_text()) if status.exists() else {}
+    check(r.returncode == 0 and len(gate) == 6
+          and all(v["status"] == "ok" for v in gate.values()),
+          f"the build gate failed: {r.stderr[-500:]}")
+    _zero_launches()
+    os.environ.update(FUZZ_CASES=str(TUNE_FUZZ[1]), FUZZ_W="128")
+    try:
+        _tool(clip_fuzz, [str(TUNE_FUZZ[0]), "--mode", "all"],
+              "the clip fuzz found mismatches")
+    finally:
+        for k in ("FUZZ_CASES", "FUZZ_W"):
+            os.environ.pop(k, None)
+    _tool(wave_modes, [str(TUNE_LANES), str(TUNE_RLEN), "--reps", "1",
+                       "--log", str(rows)],
+          "the mode A/B's records differ across modes")
+    _tool(pick_wave_mode, [str(rows), "--status", str(status), "--dry-run"],
+          "the picker refused")
+    _tool(wave_sweep, ["--no-shape", "--dense", TUNE_DENSE, "--reps", "1",
+                       "--log", str(work / "sweep.jsonl")],
+          "the dense switch's builds gave other records")
+    launches = _read_launches()
+    r = subprocess.run([sys.executable, "-m",
+                        "damapper_tpu_torch.tools.join_ab", str(genome),
+                        "reads", "--reps", "1", "--timeout", "300", "--out",
+                        str(work / "join.jsonl")],
+                       cwd=str(HERE), capture_output=True, text=True,
+                       timeout=1800)
+    print(r.stdout[-4000:], end="")
+    check(r.returncode == 0, f"the join A/B failed or its hits differ: "
+          f"{r.stderr[-500:]}")
+    joins = [json.loads(x) for x in (work / "join.jsonl").read_text()
+             .splitlines()]
+    check(len(joins) == 5 and all(j["identical_across_modes"]
+                                  for j in joins),
+          "the five joins' hits are not all equal")
+    print(f"tune phase {time.time() - t0:.1f}s")
+    return launches
+
+
 def run(torch, args) -> None:
     """Every phase, then the kernels line and the passing last line."""
-    from damapper_tpu_torch.ops import wave_cuda, wave_persistent
     t_start = time.time()
     name, count, card = phase_device(torch)
     probe_report = phase_build()
+    with pinned(CLASSIC_PIN):
+        _run_pinned(torch, args, t_start, name, count, card, probe_report)
+
+
+def _run_pinned(torch, args, t_start, name, count, card, probe_report):
+    """Phases 3 to 10 and the kernels line, with the classic mode pinned."""
+    from damapper_tpu_torch.ops import wave_cuda, wave_persistent
     kern = {}
     for lay, k in phase_kernel(torch, args.seed).items():
         kern[wave_cuda.KERNEL_NAMES[lay]] = k
@@ -1706,6 +1850,8 @@ def run(torch, args) -> None:
         (tmp / "bench").mkdir()
         bench = phase_bench(torch, tmp / "bench", args.seed, args.glen,
                             args.nreads)
+        (tmp / "tune").mkdir()
+        tune_launches = phase_tune(torch, tmp / "tune", tmp / "genome")
     phase("6 kernels")
     print(f"total {time.time() - t_start:.1f}s")
     src = "damapper_tpu_torch/csrc/"
@@ -1724,6 +1870,7 @@ def run(torch, args) -> None:
                     launches_mesh=mesh_launches.get(nm, 0),
                     launches_coop=coop_launches.get(nm, 0),
                     launches_bench=bench["kernel_launches"].get(nm, 0),
+                    launches_tune=tune_launches.get(nm, 0),
                     match=kern[nm]["max_abs_err"] == 0, **kern[nm],
                     library_ms=None)
                for nm, f, tpu in rows]

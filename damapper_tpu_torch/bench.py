@@ -13,7 +13,15 @@ line, the last of its output:
    "seconds_samples": [...], "stage_seconds": {...}, "wave_lanes": ...,
    "cell_updates_per_sec": ..., "kernel_launches": {...}, "gate": ...,
    "las_identical": bool, "variants": {"n95_C": {...}, "profile": {...}},
-   "device": nvidia-smi's name and power limit, ...}
+   "device": nvidia-smi's name and power limit, "wave_mode_source": ...,
+   "align_host_split": {...}, "wave_mode_file": ...,
+   "wave_build_status": {...}, ...}
+
+wave_mode_file is the measured mode file in force on this card (None where
+none applies) and wave_build_status each wave mode's build-gate status
+(tools/wave_build_status.json, written by tools/wave_build_gate.py), so a
+record says which mode ran, where the mode came from, and which modes the
+gate found broken.
 
 No C reference is run (neither machine of this project has it), so
 vs_baseline is null and the identity gate compares the port with itself,
@@ -183,11 +191,15 @@ def _map_blocks(work, blocks, cfg, out):
         st = mapper.LAST_STATS
         if tot is None:
             tot = dict(times=dict(st["times"]), wave_mode=st["wave_mode"],
+                       wave_mode_source=st["wave_mode_source"],
                        kernel_launches=dict(st["kernel_launches"]),
+                       align_host_split=dict(st["align_host_split"]),
                        **{f: st[f] for f in SUMMED})
             continue
         for f, v in st["times"].items():
             tot["times"][f] += v
+        for f, v in st["align_host_split"].items():
+            tot["align_host_split"][f] += v
         for f, v in st["kernel_launches"].items():
             tot["kernel_launches"][f] = tot["kernel_launches"].get(f, 0) + v
         for f in SUMMED:
@@ -342,9 +354,12 @@ def build_libraries(dev) -> float:
     if dev.type == "cuda":
         import torch
         from .ops import wave_cuda, wave_persistent
+        from .ops.wave_engine import mode_file_for, resolve_wave_mode
         torch.zeros(1, device=dev)
         wave_cuda._load()
-        if os.environ.get("DAMAPPER_WAVE_PERSISTENT", "0") == "1":
+        knobs, _ = resolve_wave_mode("cuda", {}, os.environ,
+                                     mode_file_for(dev))
+        if knobs["persistent"]:
             wave_persistent._load()
     return time.perf_counter() - t0
 
@@ -359,14 +374,26 @@ def card_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
+def _gate_status(path):
+    """Each mode's status in the build gate's file, or None without it."""
+    try:
+        return {m: v.get("status", "?")
+                for m, v in json.loads(path.read_text()).items()}
+    except (OSError, ValueError, AttributeError):
+        return None
+
+
 def run(k: Knobs, result: dict) -> bool:
     """Every timed run and gate, written into ``result``; returns whether
     every gate passed.  Raises when a run fails."""
     import torch
-    from .ops.wave_engine import resolve_device
+    from .ops.wave_engine import mode_file_for, resolve_device
+    from .tools.wave_build_gate import STATUS_FILE
     dev = resolve_device(os.environ.get("DAMAPPER_DEVICE") or None)
     result["platform"] = "gpu" if dev.type == "cuda" else "cpu"
     result["device"] = card_line() if dev.type == "cuda" else "cpu"
+    result["wave_mode_file"] = mode_file_for(dev) or None
+    result["wave_build_status"] = _gate_status(STATUS_FILE)
     work = k.work()
     t0 = time.perf_counter()
     build_dataset(work, k)
@@ -395,6 +422,9 @@ def run(k: Knobs, result: dict) -> bool:
     result["wave_lanes"] = st["n_lanes"]
     result["total_waves"] = st["total_waves"]
     result["wave_mode"] = st["wave_mode"]
+    result["wave_mode_source"] = st["wave_mode_source"]
+    result["align_host_split"] = {f: round(v, 3) for f, v in
+                                  st["align_host_split"].items()}
     result["kernel_launches"] = st["kernel_launches"]
     result["kernel_ms"] = round(st["kernel_ms"], 3)
     for f in ("n_fallback", "n_winmiss", "n_hostmin"):

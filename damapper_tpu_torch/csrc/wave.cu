@@ -120,11 +120,23 @@ wave_lanes_dense_kernel(IO io, const uint8_t* __restrict__ A, long long LA,
 }
 
 // At W=128, a launch of more lanes than wave_lanes_kernel holds on the
-// card at once runs wave_lanes_dense_kernel.
+// card at once runs wave_lanes_dense_kernel.  A build with
+// -DWAVE_DENSE_ABOVE=N (tools/wave_sweep.py's, never the default build)
+// runs it for launches of more than N lanes instead, so that the switch can
+// be timed on both sides.
 template <int W, bool REV, class IO>
 cudaError_t launch_w(IO io, const uint8_t* A, long long LA, const uint8_t* B,
                      long long LB, int n, Consts cs, int* pool,
                      cudaStream_t st) {
+#ifdef WAVE_DENSE_ABOVE
+  if constexpr (W == 128) {
+    if ((long long)n > (long long)(WAVE_DENSE_ABOVE)) {
+      wave_lanes_dense_kernel<REV, IO><<<n, W, 0, st>>>(io, A, LA, B, LB, cs,
+                                                        pool);
+      return cudaGetLastError();
+    }
+  }
+#else
   if constexpr (W == 128) {
     int dev = 0, sms = 0, fit = 0;
     cudaError_t e = cudaGetDevice(&dev);
@@ -140,6 +152,7 @@ cudaError_t launch_w(IO io, const uint8_t* A, long long LA, const uint8_t* B,
       return cudaGetLastError();
     }
   }
+#endif
   wave_lanes_kernel<W, REV, IO><<<n, W, 0, st>>>(io, A, LA, B, LB, cs, pool);
   return cudaGetLastError();
 }

@@ -10,26 +10,41 @@ overflowed (band, pool or wave cap) re-aligned by the host oracle
 ``host_min`` lanes.  Each wave direction of a round is ONE kernel launch
 over all its lanes.
 
-The mode is chosen as the JAX package chooses it (explicit argument, then
-the environment): classic (wave_lanes, the default) or persistent
-(DAMAPPER_WAVE_PERSISTENT=1: wave_lanes_persistent, each lane against its
-sequence windows), each in one of three layouts of the lane state, which
-pick the kernel: plain, packed (DAMAPPER_WAVE_PACKOPS=1) or lane-packed
-(DAMAPPER_WAVE_LANEPACK=1, which wins over packed).  In persistent mode the
-lanes a persistent kernel flags as overflowed (most often a window miss) are
-re-run on the classic kernel of the same layout at the same band before any
-of them reaches the oracle (the JAX engine's retry tier and its classic
-twin, wave_pallas.py:2369-2416).
+The mode is chosen as the JAX package chooses it (resolve_wave_mode: the
+explicit argument, then the environment, then the measured mode file
+damapper_tpu_torch/wave_mode.json, then the built-in default): classic
+(wave_lanes, the default) or persistent (DAMAPPER_WAVE_PERSISTENT=1:
+wave_lanes_persistent, each lane against its sequence windows), each in one
+of three layouts of the lane state, which pick the kernel: plain, packed
+(DAMAPPER_WAVE_PACKOPS=1) or lane-packed (DAMAPPER_WAVE_LANEPACK=1, which
+wins over packed).  The band (DAMAPPER_WAVE_BANDCAP) and the smallest round
+that reaches the card (DAMAPPER_WAVE_HOSTMIN) resolve the same way.  The
+mode file applies only to an engine on the card it was measured on
+(tools/pick_wave_mode.py writes it); the CPU ignores it.  In persistent
+mode the lanes a persistent kernel flags as overflowed (most often a window
+miss) are re-run on the classic kernel of the same layout at the same band
+before any of them reaches the oracle (the JAX engine's retry tier and its
+classic twin, wave_pallas.py:2369-2416).
 
 DAMAPPER_WAVE_DUMP=<file> appends every round's seed list to <file>, one
 pickle a round, as the JAX engine does; damapper_tpu_torch.tools.wave_replay
 replays such a dump, this engine against the host oracle.
+
+The engine's host seconds are split by step (``host_s``: upload, pull,
+trace, refine, oracle; see HOST_STEPS).  DAMAPPER_WAVE_KIT=1 also keeps a
+log of every launch (``kit_log``, the newest DAMAPPER_WAVE_KIT_CAP entries):
+its direction, lanes, each lane's waves, its kernel ms and the host seconds
+by step that followed it in its round (tools/wave_kit.py reads it).  Neither
+changes a record.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import json
 import os
+import pathlib
 import pickle
 import time
 from dataclasses import dataclass
@@ -76,12 +91,78 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _switch(arg, env) -> bool:
-    """An engine switch: the explicit argument, else the environment
-    variable (on when it is "1"), else off."""
-    if arg is not None:
-        return bool(arg)
-    return os.environ.get(env, "0") == "1"
+#: the measured default mode (tools/pick_wave_mode.py writes it)
+MODE_FILE = pathlib.Path(__file__).resolve().parent.parent / "wave_mode.json"
+#: the engine's knobs, resolved by resolve_wave_mode, and their variables
+MODE_ENV = {"persistent": "DAMAPPER_WAVE_PERSISTENT",
+            "packops": "DAMAPPER_WAVE_PACKOPS",
+            "lanepack": "DAMAPPER_WAVE_LANEPACK",
+            "band_cap": "DAMAPPER_WAVE_BANDCAP",
+            "host_min": "DAMAPPER_WAVE_HOSTMIN"}
+SWITCHES = ("persistent", "packops", "lanepack")
+#: the steps of the engine's host seconds (``WaveEngine.host_s``): upload
+#: (seed columns, each launch's lane inputs and their copies to the card),
+#: pull (the launch, the wait for the kernel and the copy back; on the CPU
+#: the plain version's run), trace (the forward and reverse trace
+#: extraction and the paths' finish), refine (the fshort/rshort double
+#: pass: its classification, its redo rounds' inputs and traces), oracle
+#: (lanes re-aligned on the host: overflows and tiny rounds)
+HOST_STEPS = ("upload", "pull", "trace", "refine", "oracle")
+#: kit log entries kept by default (the JAX engine's KIT_LOG_CAP)
+KIT_CAP = 4096
+
+
+def default_band(device_type: str, persistent: bool, lanepack: bool) -> int:
+    """The built-in band: 128 for the classic plain and packed kernels on
+    the card, else 64 (the JAX engine's defaults)."""
+    return 128 if (device_type == "cuda" and not persistent
+                   and not lanepack) else 64
+
+
+def resolve_wave_mode(device_type: str, args: dict, env, mode_file: dict):
+    """The engine's knobs (SWITCHES, band_cap, host_min), each from the
+    first of: its argument (not None), its MODE_ENV variable (a switch is on
+    when it is "1"), the mode file's entry, the built-in default (classic;
+    default_band; 16).  mode_file applies only on the card: pass {} where
+    it does not (mode_file_for).  Pure; returns (values, sources), sources
+    naming "arg", "env", "file" or "default" for each knob, plus "mode":
+    the lowest-precedence source that set one of the three switches."""
+    vals, srcs = {}, {}
+    order = (*SWITCHES, "band_cap", "host_min")
+    for k in order:
+        conv = bool if k in SWITCHES else int
+        if args.get(k) is not None:
+            vals[k], srcs[k] = conv(args[k]), "arg"
+        elif MODE_ENV[k] in env:
+            v = env[MODE_ENV[k]]
+            vals[k], srcs[k] = (v == "1" if k in SWITCHES else int(v)), "env"
+        elif device_type == "cuda" and mode_file.get(k) is not None:
+            vals[k], srcs[k] = conv(mode_file[k]), "file"
+        else:
+            vals[k] = (False if k in SWITCHES else 16 if k == "host_min"
+                       else default_band(device_type, vals["persistent"],
+                                         vals["lanepack"]))
+            srcs[k] = "default"
+    srcs["mode"] = next((s for s in ("file", "env", "arg")
+                         if s in {srcs[k] for k in SWITCHES}), "default")
+    return vals, srcs
+
+
+def mode_file_for(device) -> dict:
+    """The mode file's entries where they apply to an engine on
+    ``device``: on a CUDA device, when the file's platform is "cuda" and
+    its card is that device's name; else {} (a measurement steers only the
+    card it was taken on, never the CPU)."""
+    if device.type != "cuda":
+        return {}
+    try:
+        f = json.loads(MODE_FILE.read_text())
+    except (OSError, ValueError):
+        return {}
+    if (not isinstance(f, dict) or f.get("platform") != "cuda"
+            or f.get("card") != torch.cuda.get_device_name(device)):
+        return {}
+    return f
 
 
 class WaveEngine:
@@ -91,9 +172,10 @@ class WaveEngine:
     and packed kernels on the card, else 64 (the JAX engine's defaults).
     pool_cap: the most pebble rows a lane may use; each round sizes its pool
     from its longest a-read.
-    host_min: rounds with fewer lanes run on the host oracle.  persistent,
-    packops, lanepack: the wave mode (None: DAMAPPER_WAVE_PERSISTENT,
-    DAMAPPER_WAVE_PACKOPS, DAMAPPER_WAVE_LANEPACK).  mesh: a
+    host_min: rounds with fewer lanes run on the host oracle (default 16).
+    persistent, packops, lanepack: the wave mode.  None leaves a knob to
+    resolve_wave_mode (the environment, the mode file on its card, the
+    default); ``mode_source`` says where the mode came from.  mesh: a
     parallel.mesh.Mesh of one process whose "dp" axis shards every
     launch's lanes (padded with filler lanes to a multiple of the dp size):
     each shard's kernel runs on its dp row's device, every shard is
@@ -101,7 +183,7 @@ class WaveEngine:
     launch counts once per shard."""
 
     def __init__(self, spec: AlignSpec, band_cap: int | None = None,
-                 pool_cap: int = 2048, device=None, host_min: int = 16,
+                 pool_cap: int = 2048, device=None, host_min=None,
                  persistent=None, packops=None, lanepack=None, mesh=None):
         self.spec = spec
         self.device = resolve_device(device)
@@ -119,21 +201,21 @@ class WaveEngine:
                                  f"all of the engine's device type "
                                  f"{self.device.type}")
         self._mirrors = {}      # dp device -> sequence memories there
-        self.persistent = _switch(persistent, "DAMAPPER_WAVE_PERSISTENT")
-        packops = _switch(packops, "DAMAPPER_WAVE_PACKOPS")
-        lanepack = _switch(lanepack, "DAMAPPER_WAVE_LANEPACK")
-        self.layout = ("lanepack" if lanepack else
-                       "packed" if packops else "plain")
+        knobs, sources = resolve_wave_mode(
+            self.device.type, dict(persistent=persistent, packops=packops,
+                                   lanepack=lanepack, band_cap=band_cap,
+                                   host_min=host_min),
+            os.environ, mode_file_for(self.device))
+        self.mode_source = sources["mode"]
+        self.persistent = knobs["persistent"]
+        self.layout = ("lanepack" if knobs["lanepack"] else
+                       "packed" if knobs["packops"] else "plain")
         self.mode = (("persistent" if self.persistent else "classic")
                      + {"plain": "", "packed": "+packops",
                         "lanepack": "+lanepack"}[self.layout])
-        if band_cap is None:
-            band_cap = 128 if (self.device.type == "cuda"
-                               and not self.persistent
-                               and self.layout != "lanepack") else 64
-        self.W = band_cap
+        self.W = knobs["band_cap"]
         self.P = pool_cap
-        self.host_min = host_min
+        self.host_min = knobs["host_min"]
         self._consts = (spec.trace_space, spec.ave_path, spec.mscore,
                         spec.dscore)
         self._activeP = pool_cap
@@ -149,6 +231,36 @@ class WaveEngine:
         self.t_run = 0.0        # seconds inside _run (device + pull wait)
         self.t_batch = 0.0      # seconds inside local_alignment_batch
         self.kernel_ms = 0.0    # summed kernel time from CUDA events
+        self.host_s = dict.fromkeys(HOST_STEPS, 0.0)
+        # DAMAPPER_WAVE_KIT=1: one entry a launch (and a tiny host round),
+        # the newest DAMAPPER_WAVE_KIT_CAP kept, so a long run with the
+        # variable left on holds a bounded log
+        self.kit_log = None
+        if os.environ.get("DAMAPPER_WAVE_KIT") == "1":
+            self.kit_log = collections.deque(maxlen=int(os.environ.get(
+                "DAMAPPER_WAVE_KIT_CAP", KIT_CAP)))
+        self._entry = None      # the kit entry host steps are charged to
+        self._clk = 0.0         # the end of the round's last host step
+
+    def _step(self, step: str):
+        """Charge the host seconds since the round's last step to ``step``
+        (and to the kit entry of the round's latest launch)."""
+        t = time.perf_counter()
+        self.host_s[step] += t - self._clk
+        if self._entry is not None:
+            self._entry["host_s"][step] += t - self._clk
+        self._clk = t
+
+    def _kit_entry(self, which, n, persistent):
+        """A new kit entry (the one later host steps are charged to), or
+        None with the kit off."""
+        self._entry = None
+        if self.kit_log is not None:
+            self._entry = dict(dir=which, lanes=n, persistent=persistent,
+                               waves=np.zeros(0, np.int32), kernel_ms=0.0,
+                               host_s=dict.fromkeys(HOST_STEPS, 0.0))
+            self.kit_log.append(self._entry)
+        return self._entry
 
     def upload(self, flat) -> torch.Tensor:
         """Sequence memory (uint8 numpy, sentinel layout) on the device."""
@@ -178,6 +290,9 @@ class WaveEngine:
         bad = np.flatnonzero(res.overflow)
         if len(bad) == 0:
             return res
+        if self._entry is not None:
+            # as total_waves: a retried lane counts its classic waves only
+            self._entry["waves"][bad] = 0
         sub = self._launch_and_pull(
             which, *(np.asarray(x)[bad] for x in lanes), Adev, Bdev,
             None if sortkey is None else np.asarray(sortkey)[bad],
@@ -229,6 +344,7 @@ class WaveEngine:
             args += [w.numpy() for w in persistent_windows(
                 *(torch.from_numpy(x) for x in args[:4]), Adev.shape[0],
                 Bdev.shape[0], self._L, reverse)]
+        entry = self._kit_entry(which, n, persistent)
         # kernel time on the current device's stream (with shards on other
         # cards, theirs is not in it)
         timed = self.device.type == "cuda"
@@ -253,14 +369,18 @@ class WaveEngine:
         top = int(min(P, max(2, int(scal[OUT_FIELDS.index("avail")].max()))))
         pool = np.concatenate([out["pool"][:, :top].cpu().numpy()
                                for out in outs])[:n]
-        if timed:
-            self.kernel_ms += ev0.elapsed_time(ev1)
+        ms = ev0.elapsed_time(ev1) if timed else 0.0
+        self.kernel_ms += ms
         merged = {f: scal[i] for i, f in enumerate(OUT_FIELDS)}
         merged["overflow"] = merged["overflow"] != 0
         merged["pool"] = pool
         if order is not None:
             merged = {f: v[inv] for f, v in merged.items()}
         self.total_waves += int(merged["waves"].sum())
+        if entry is not None:
+            entry["waves"] = merged["waves"].astype(np.int32)
+            entry["kernel_ms"] = ms
+        self._step("pull")
         return WaveResult(**merged)
 
     def _seq_on(self, dev, Adev, Bdev):
@@ -296,6 +416,9 @@ class WaveEngine:
         cnt = "launches_" + self.layout
         ctx = (torch.cuda.device(dev) if self.mesh is not None
                and dev.type == "cuda" else contextlib.nullcontext())
+        # the launch itself counts as the wait for its results (on the CPU
+        # it is the plain version's whole run)
+        self._step("upload")
         with ctx:
             if persistent:
                 real, names = _wp.wave_lanes_persistent, _wp.KERNEL_NAMES
@@ -310,6 +433,7 @@ class WaveEngine:
                 out = wave_lanes(*ins[:6], A, B, **consts, W=self.W, P=P,
                                  reverse=reverse, layout=self.layout, **kw)
         self.launches[names[self.layout]] += getattr(real, cnt) - before
+        self._step("pull")
         return out
 
     # ---- full Local_Alignment over a batch of seeds ----
@@ -335,6 +459,8 @@ class WaveEngine:
     def _batch_inner(self, Adev, Bdev, Anp, Bnp, seeds):
         n = len(seeds)
         self.n_total += n
+        self._clk = time.perf_counter()
+        self._entry = None
         TS = self.spec.trace_space
         out = [None] * n
         dump = os.environ.get("DAMAPPER_WAVE_DUMP")
@@ -348,7 +474,10 @@ class WaveEngine:
 
         if n < self.host_min:
             self.n_hostmin += n
-            return [self._oracle(Anp, Bnp, s) for s in seeds]
+            self._kit_entry("host", n, False)
+            res = [self._oracle(Anp, Bnp, s) for s in seeds]
+            self._step("oracle")
+            return res
         if self.persistent:
             # one window length for the whole round and its redo rounds
             self._L = window_length(max(s["alen"] for s in seeds))
@@ -390,6 +519,7 @@ class WaveEngine:
             fwd_a[i] = fwd.trace
             fwd_b[i] = btr
             low2[i] = lowi
+        self._step("trace")
 
         r = self._run("rev", abase, bbase, anti, low2, aoffp, boffp,
                       Adev, Bdev,
@@ -411,6 +541,7 @@ class WaveEngine:
             ap.diffs = ap.diffs + trimd
             fwd_a[i] = a_pre + fwd_a[i]
             fwd_b[i] = b_pre + fwd_b[i]
+        self._step("trace")
 
         # fshort/rshort double-pass refinement (align.c:1810-1854)
         redo_f, redo_r = [], []
@@ -429,6 +560,7 @@ class WaveEngine:
                 redo_f.append(i)
             elif rshort:
                 redo_r.append(i)
+        self._step("refine")
 
         if redo_f:
             idx = np.array(redo_f, np.int32)
@@ -453,6 +585,7 @@ class WaveEngine:
                 ap.aepos, ap.bepos, ap.diffs = fwd.aepos, fwd.bepos, fwd.diffs
                 fwd_a[i] = fwd.trace
                 fwd_b[i] = btr
+            self._step("refine")
 
         if redo_r:
             idx = np.array(redo_r, np.int32)
@@ -479,11 +612,10 @@ class WaveEngine:
                 ap.diffs = trimd
                 fwd_a[i] = a_pre + fa
                 fwd_b[i] = b_pre + fb
+            self._step("refine")
 
         for i in range(n):
             if i in fallback:
-                self.n_fallback += 1
-                out[i] = self._oracle(Anp, Bnp, seeds[i])
                 continue
             ap = apaths[i]
             bp = _host.PathRec()
@@ -492,6 +624,11 @@ class WaveEngine:
             _host.finalize_paths(ap, bp, int(flags[i]), int(alen[i]),
                                  int(blen[i]))
             out[i] = (ap, bp)
+        self._step("trace")
+        for i in sorted(fallback):
+            self.n_fallback += 1
+            out[i] = self._oracle(Anp, Bnp, seeds[i])
+        self._step("oracle")
         return out
 
 
@@ -524,7 +661,7 @@ def _reach_select(res: WaveResult, i: int, reach: bool):
 
 
 def local_alignment_batch(spec: AlignSpec, Anp, Bnp, seeds, device=None,
-                          host_min: int = 16, band_cap=None,
+                          host_min=None, band_cap=None,
                           pool_cap: int = 2048, **mode):
     """One-shot batched Local_Alignment: uploads the sequence memories to
     ``device`` (None: the CUDA card) and aligns every seed.  mode: the

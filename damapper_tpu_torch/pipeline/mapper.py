@@ -115,11 +115,13 @@ class DamapperConfig:
     wave_backend: "device" (the batched wave engine on ``device``) or
     "oracle" (the host Local_Alignment, one seed at a time).  host_min:
     wave rounds with fewer lanes run on the host oracle.  persistent,
-    packops, lanepack: the wave engine's mode (None: the environment's
-    DAMAPPER_WAVE_PERSISTENT, DAMAPPER_WAVE_PACKOPS, DAMAPPER_WAVE_LANEPACK;
-    see ops.wave_engine).  index_backend: "device" (ops.device_index on
-    ``device``) or "host"; None: DAMAPPER_INDEX, else "device" on the card
-    and "host" on the CPU.  chain_backend: "host" or "device"
+    packops, lanepack (and host_min): the wave engine's mode (None: the
+    environment's DAMAPPER_WAVE_PERSISTENT, DAMAPPER_WAVE_PACKOPS,
+    DAMAPPER_WAVE_LANEPACK, DAMAPPER_WAVE_HOSTMIN, then the measured mode
+    file on its card; see ops.wave_engine.resolve_wave_mode).
+    index_backend: "device" (ops.device_index on ``device``) or "host";
+    None: DAMAPPER_INDEX, else "device" on the card and "host" on the
+    CPU.  chain_backend: "host" or "device"
     (ops.chain_device on ``device``); None: DAMAPPER_CHAIN, else "host".
     mesh: a parallel.mesh.Mesh, None (one device) or "auto" (_auto_mesh,
     resolved by run_damapper)."""
@@ -127,7 +129,7 @@ class DamapperConfig:
     def __init__(self, kmer=20, suppress=0, mem_limit=None, ave_error=.85,
                  spacing=100, best_tie=1.0, masks=(), verbose=False,
                  profile=False, do_a=True, do_b=False, map_order=True,
-                 wave_backend="device", device=None, host_min=16,
+                 wave_backend="device", device=None, host_min=None,
                  persistent=None, packops=None, lanepack=None,
                  index_backend=None, chain_backend=None, mesh="auto"):
         self.kmer = kmer
@@ -446,7 +448,8 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
             # fallback would destroy device perf while keeping output
             # identical
             ndev = engine.n_total - engine.n_fallback - engine.n_hostmin
-            print(f"      wave mode {engine.mode} (W={engine.W}); lanes: "
+            print(f"      wave mode {engine.mode} from {engine.mode_source} "
+                  f"(W={engine.W}); lanes: "
                   f"{engine.n_total:,} total, {ndev:,} device, "
                   f"{engine.n_winmiss:,} retried on the classic kernel, "
                   f"{engine.n_fallback:,} overflow-fallback, "
@@ -499,6 +502,8 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
                       n_fallback=getattr(engine, "n_fallback", 0),
                       n_winmiss=getattr(engine, "n_winmiss", 0),
                       wave_mode=getattr(engine, "mode", "oracle"),
+                      # where the mode came from: arg, env, file, default
+                      wave_mode_source=getattr(engine, "mode_source", None),
                       kernel_launches=dict(getattr(engine, "launches", {})),
                       n_lanes=getattr(engine, "n_total", 0),
                       n_hostmin=getattr(engine, "n_hostmin", 0),
@@ -508,7 +513,9 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
                       align_device_s=round(getattr(engine, "t_run", 0.), 2),
                       align_host_s=round(
                           max(0., getattr(engine, "t_batch", 0.)
-                              - getattr(engine, "t_run", 0.)), 2))
+                              - getattr(engine, "t_run", 0.)), 2),
+                      # the engine's host seconds by step (HOST_STEPS)
+                      align_host_split=dict(getattr(engine, "host_s", {})))
     return a_path, b_path
 
 

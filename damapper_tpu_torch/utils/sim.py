@@ -6,7 +6,9 @@ the same dataset.  ``make_lane_cases`` builds a sentinel-separated sequence
 memory plus one seed per read, the layout a loaded DB gives the wave;
 ``make_long_lane_cases`` the same for long reads, with the window length the
 persistent kernels give them; ``make_adversarial_lane_cases`` the same for
-exact repeats, long exact runs and seeds next to the memory's ends.
+exact repeats, long exact runs and seeds next to the memory's ends;
+``make_clip_cases`` lanes whose reverse wave clips at the start of A
+(tools/clip_fuzz.py's cases).
 """
 
 from __future__ import annotations
@@ -186,3 +188,62 @@ def make_long_lane_cases(seed, ncases, rmin=40_000, rlen=45_000, err=0.15):
     seqmem, insts = make_lane_cases(seed, ncases, glen=4 * rlen, rlen=rlen,
                                     err=err, mix=True, rmin=rmin)
     return seqmem, insts, window_length(max(s["blen"] for s in insts))
+
+
+def make_clip_cases(seed, ncases, glen=12000, rlen=360,
+                    err_head=0.22, err_tail=0.12, head=110, junk=48):
+    """Reads whose reverse wave dives off the START of A and keeps going.
+
+    Each read is [junk random bases | noisy genome fragment] with the seed
+    7/8 into the read (the read is A, the genome B).  The reverse wave walks
+    cleanly back to the junk head; inside the junk, A-gap-leaning paths
+    touch x == 0 (clip and REACH grab) while luckier frontiers off the
+    boundary keep the wave alive, so the band re-clips at successive
+    diagonals over many waves: the lane class of the JAX package's 50k-read
+    parity edge, where the band's prune after a clip must keep the
+    diagonals just above the clip or a later, better boundary grab is lost.
+    Draws what the JAX package's clip fuzz draws from the same seed, byte
+    for byte.  Returns (seqmem uint8, list of seed dicts)."""
+    rng = np.random.default_rng(seed)
+    genome = sim_genome(rng, glen)
+
+    flat = [np.array([4], np.uint8), dbio.seq_to_numeric(genome)]
+    gbase, off = 1, 1 + glen
+    insts = []
+    for _ in range(ncases):
+        start = int(rng.integers(0, glen - rlen - 100))
+        frag = genome[start:start + rlen]
+        out = []
+        truth = []   # (bpos in the genome, apos in the read)
+        apos = 0
+        for i, ch in enumerate(frag):
+            err = err_head if i < head else err_tail
+            if rng.random() < err:
+                t = rng.random()
+                if t < 0.55:           # insertion in the read
+                    out.append("ACGT"[rng.integers(0, 4)])
+                    out.append(ch)
+                    truth.append((start + i, apos + 1))
+                    apos += 2
+                elif t < 0.80:         # deletion
+                    pass
+                else:                  # substitution
+                    out.append("ACGT"[("ACGT".index(ch) + 1) % 4])
+                    apos += 1
+            else:
+                out.append(ch)
+                truth.append((start + i, apos))
+                apos += 1
+        jhead = "".join("ACGT"[j] for j in rng.integers(0, 4, junk))
+        read = dbio.seq_to_numeric(jhead + "".join(out))
+        gpos, rpos = truth[(7 * len(truth)) // 8]
+        rpos += junk
+        flat.append(np.array([4], np.uint8))
+        off += 1
+        flat.append(read)
+        insts.append(dict(abase=off, alen=len(read), bbase=gbase,
+                          blen=glen, diag=rpos - gpos,
+                          anti=(rpos + 1) + (gpos + 1), flags=0))
+        off += len(read)
+    flat.append(np.array([4], np.uint8))
+    return np.concatenate(flat), insts

@@ -6,8 +6,6 @@ traces must be equal.  On the CPU the engine's kernel calls run the plain
 PyTorch version of the wave kernel.
 """
 
-import sys
-
 import jax.numpy as jnp
 import pytest
 
@@ -16,8 +14,7 @@ from damapper_tpu.ops.spec import new_align_spec
 from damapper_tpu.ops.wave_pallas import PallasWaveEngine
 from damapper_tpu_torch.ops import wave_engine as twe
 from damapper_tpu_torch.ops.spec import new_align_spec as t_new_align_spec
-from damapper_tpu_torch.utils.sim import make_lane_cases
-from tests import helpers
+from damapper_tpu_torch.utils.sim import make_clip_cases, make_lane_cases
 
 SPEC = new_align_spec(0.85, 100, [.25, .25, .25, .25], True)
 T_SPEC = t_new_align_spec(0.85, 100, [.25, .25, .25, .25], True)
@@ -38,9 +35,9 @@ def _same_paths(x, y):
 
 
 def _clip_cases():
-    sys.path.insert(0, str(helpers.REPO / "tools"))
-    import clip_fuzz
-    seqmem, all_insts = clip_fuzz.make_clip_cases(7000, 117)
+    # the port's copy of tools/clip_fuzz.py's cases (test_torch_tune.py
+    # holds it to the JAX tool's byte for byte)
+    seqmem, all_insts = make_clip_cases(7000, 117)
     return seqmem, [all_insts[i] for i in (0, 14, 46, 50, 55, 67, 116)]
 
 

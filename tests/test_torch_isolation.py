@@ -17,8 +17,11 @@ import damapper_tpu_torch
 from damapper_tpu_torch.ops import (chain_device, device_index, probes,
                                     wave_cuda, wave_engine, wave_persistent)
 from damapper_tpu_torch.pipeline import mapper
-from damapper_tpu_torch.tools import (carry_probe, floor_probe, ops_probe,
-                                      wave_clocks)
+from damapper_tpu_torch.tools import (carry_probe, clip_fuzz, floor_probe,
+                                      index_profile, join_ab, ops_probe,
+                                      pick_wave_mode, sort_floor, tuning,
+                                      wave_build_gate, wave_clocks, wave_kit,
+                                      wave_modes, wave_sweep)
 
 PKG = pathlib.Path(damapper_tpu_torch.__file__).resolve().parent
 REPO = PKG.parent
@@ -47,6 +50,46 @@ def test_entry_points_are_covered():
                 "damapper_tpu_torch.tools.wave_replay"):
         assert mod in _modules()
         assert PKG.parent / (mod.replace(".", "/") + ".py") in SOURCES
+
+
+TUNING_TOOLS = (clip_fuzz, index_profile, join_ab, pick_wave_mode,
+                sort_floor, tuning, wave_build_gate, wave_kit, wave_modes,
+                wave_sweep)
+
+
+@pytest.mark.parametrize("mod", TUNING_TOOLS,
+                         ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+def test_tuning_tools_are_covered(mod):
+    """The tuning tools and the engine's mode file are among the modules
+    and sources the checks below walk."""
+    assert mod.__name__ in _modules()
+    assert pathlib.Path(mod.__file__).resolve() in SOURCES
+
+
+TOOL_RUNS = {
+    "clip_fuzz": (clip_fuzz, ["1"]),
+    "wave_build_gate": (wave_build_gate, ["--modes", "classic"]),
+    "wave_modes": (wave_modes, ["4", "1200"]),
+    "wave_sweep": (wave_sweep, ["4", "1200"]),
+    "wave_kit": (wave_kit, ["4", "1200", "1000"]),
+    "join_ab": (join_ab, ["/nonexistent", "reads"]),
+    "index_profile": (index_profile, ["/nonexistent", "reads"]),
+    "sort_floor": (sort_floor, ["0.01", "0.01", "0.01"]),
+    "pick_wave_mode": (pick_wave_mode, []),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TOOL_RUNS))
+def test_tuning_tool_without_card_raises(monkeypatch, name, tmp_path):
+    """With no card and no --device cpu, a tuning tool raises and writes
+    no record."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tuning, "RESULTS_FILE", tmp_path / "r.jsonl")
+    monkeypatch.setattr(tuning, "STATUS_FILE", tmp_path / "s.json")
+    mod, argv = TOOL_RUNS[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)
+    assert not list(tmp_path.iterdir())
 
 
 def test_importing_every_module_loads_no_jax():

@@ -78,6 +78,9 @@ def dumps(tmp_path_factory):
         mp.setattr(twe.WaveEngine, "local_alignment_batch", recording)
         (tmp / "torch").mkdir()
         mp.setenv("DAMAPPER_WAVE_DUMP", str(tmp / "torch.pkl"))
+        # the port at its own tiny-round threshold (16): the engine reads
+        # DAMAPPER_WAVE_HOSTMIN, which the test configuration sets to 0
+        mp.delenv("DAMAPPER_WAVE_HOSTMIN", raising=False)
         tmapper.run_damapper(str(tmp / "ref.dam"), str(tmp / "reads.db"),
                              tmapper.DamapperConfig(device="cpu"),
                              out_dir=str(tmp / "torch"))
