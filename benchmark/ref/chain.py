@@ -1,0 +1,279 @@
+"""Seed chaining for one read: the sweep over its hits and the candidates.
+
+The benchmark's frozen copy of the Python sweep of the port's ``ops/chain.py``
+(the reference's chain_thread, map.c:1020-1922), without the native and the
+device sweeps: a splay tree's order-statistics queries answered from a sorted
+key list, chains of cost >= HITMIN*kmer kept under the MIN_PIECE/0.9-score
+dominance rule over the read's candidate stack, which persists across
+reference blocks and orientations, and the -p coverage counters.
+"""
+
+from __future__ import annotations
+
+from bisect import bisect_left, insort
+from dataclasses import dataclass, field
+
+import numpy as np
+
+HITMIN = 3        # map.c:34
+MAX_GAP = 1000    # map.c:36
+MIN_PIECE = 300   # map.c:37
+
+
+class _Node:
+    __slots__ = ("apos", "bpos", "diag", "cost", "frm", "orig", "best",
+                 "absorbed")
+
+    def __init__(self, apos, bpos):
+        self.apos = apos
+        self.bpos = bpos
+        self.diag = apos - bpos
+        self.cost = 0
+        self.frm = None
+        self.orig = self
+        self.best = self      # valid only on origin nodes (C's orig->orig)
+        self.absorbed = False
+
+    @property
+    def key(self):
+        return (self.diag, self.apos)
+
+
+@dataclass
+class Candidate:
+    score: int
+    bread: int      # global contig index (block offset added)
+    comp: int
+    afirst: int
+    alast: int
+    bfirst: int
+    blast: int
+    length: int
+    jumps: list = field(default_factory=list)  # (adisp, bdisp) last-to-first
+
+
+def _chain_length(h: _Node) -> int:
+    """Compress same-diagonal steps < 100bp apart; return remaining link count
+    (chain_length map.c:1243-1260).  Mutates frm pointers like the original."""
+    n = 0
+    x = h
+    y = x.frm
+    while y is not None:
+        da = x.apos - y.apos
+        if da == x.bpos - y.bpos and da < 100:
+            y = x.frm = y.frm
+        else:
+            n += 1
+            x = y
+            y = x.frm
+    return n
+
+
+class ChainState:
+    """Per-reads-block chaining state persisted across reference blocks:
+    the candidate stack per read (reads[].coff equivalent) and the optional
+    repeat-profile coverage counters."""
+
+    def __init__(self, nreads: int, kmer: int, profile=False, rlens=None,
+                 spacing=100):
+        self.nreads = nreads
+        self.kmer = kmer
+        self.hithr = HITMIN * kmer
+        self.cands: list[list[Candidate]] = [[] for _ in range(nreads)]
+        self.profile = profile
+        self.spacing = spacing
+        if profile:
+            self.cover = [np.zeros((int(rlens[i]) - 1) // spacing + 2, np.int32)
+                          for i in range(nreads)]
+        else:
+            self.cover = None
+
+    # -- one (aread, bread) group -------------------------------------------
+
+    def _sweep_group(self, apos_arr, bpos_arr):
+        """Run the chain sweep over one group's hits (ascending apos order).
+        Returns the end-of-group scan list: active nodes in decreasing key
+        order followed by expired chain-best nodes in REVERSE expiry order
+        (the reference prepends each expiring node, map.c:1790-1794, so its
+        expired list is LIFO — the order decides which of two equal-span
+        LAs survives Handle_Redundancies)."""
+        keys: list[tuple] = []      # sorted ascending (diag, apos)
+        nodes: dict[tuple, _Node] = {}
+        queue: list[_Node] = []
+        qhead = 0
+        expired: list[_Node] = []
+
+        for apos, bpos in zip(apos_arr, bpos_arr):
+            # expire hits out of the MAX_GAP window (map.c:1787-1796)
+            while qhead < len(queue) and queue[qhead].apos < apos - MAX_GAP:
+                nd = queue[qhead]
+                if not nd.absorbed:
+                    i = bisect_left(keys, nd.key)
+                    del keys[i]
+                    del nodes[nd.key]
+                    if nd.orig.best is nd:
+                        expired.append(nd)
+                qhead += 1
+
+            nd = _Node(apos, bpos)
+            insort(keys, nd.key)
+            nodes[nd.key] = nd
+
+            thresh = bpos - MAX_GAP
+            # pred: smallest key > nd.key with bpos >= thresh
+            l = None
+            i = bisect_left(keys, nd.key) + 1
+            while i < len(keys):
+                cand = nodes[keys[i]]
+                if cand.bpos >= thresh:
+                    l = cand
+                    break
+                i += 1
+            if l is not None:
+                # leftmost: largest-apos active node on l's diagonal with
+                # bpos >= thresh (same-diag larger apos always qualifies)
+                j = bisect_left(keys, (l.diag + 1, -1)) - 1
+                cand = nodes[keys[j]]
+                l = cand if cand.diag == l.diag else l
+
+            # succ: largest key < nd.key with bpos <= bpos
+            r = None
+            i = bisect_left(keys, nd.key) - 1
+            while i >= 0:
+                cand = nodes[keys[i]]
+                if cand.bpos <= bpos:
+                    r = cand
+                    break
+                i -= 1
+
+            lcost = rcost = 0
+            if l is not None:
+                lcost = l.cost + (self.kmer if apos >= l.apos + self.kmer
+                                  else apos - l.apos)
+            if r is not None:
+                rcost = r.cost + (self.kmer if bpos >= r.bpos + self.kmer
+                                  else bpos - r.bpos)
+            if lcost > rcost:
+                rcost = 0
+            else:
+                lcost = 0
+
+            if lcost > 0:
+                self._extend(nd, l, lcost, keys, nodes)
+            elif rcost > 0:
+                self._extend(nd, r, rcost, keys, nodes)
+            else:
+                nd.frm = None
+                nd.cost = self.kmer
+                nd.orig = nd
+
+            queue.append(nd)
+
+        # end of group: active set in DECREASING key order + expired LIFO
+        # (linearize map.c:1205-1225 yields decreasing (diag,apos), with the
+        # prepend-built expired list appended)
+        scan = [nodes[k] for k in reversed(keys)]
+        scan.extend(reversed(expired))
+        return scan
+
+    def _extend(self, nd: _Node, p: _Node, cost: int, keys, nodes):
+        nd.frm = p
+        nd.cost = cost
+        nd.orig = p if p.frm is None else p.orig
+        if cost >= nd.orig.best.cost:
+            nd.orig.best = nd
+            if abs(p.diag - nd.diag) <= .2 * (nd.apos - p.apos):
+                i = bisect_left(keys, p.key)
+                del keys[i]
+                del nodes[p.key]
+                p.absorbed = True
+
+    # -- candidate insertion with dominance (map.c:1641-1767) ----------------
+
+    def _consider(self, ar, h: _Node, bread_global, comp):
+        ab = h.orig.apos - self.kmer
+        bb = h.orig.bpos - self.kmer
+        ae = h.apos
+        be = h.bpos
+        length = _chain_length(h)
+        jumps = []
+        g = h
+        f = h.frm
+        while f is not None:
+            jumps.append((g.apos - f.apos, g.bpos - f.bpos))
+            g = f
+            f = f.frm
+        self._push_candidate(ar, h.cost, ab, ae, bb, be, length, jumps,
+                             bread_global, comp)
+
+    def _push_candidate(self, ar, cost, ab, ae, bb, be, length, jumps,
+                        bread_global, comp):
+        if self.profile:
+            cnt = self.cover[ar]
+            tb = ab // self.spacing
+            te = (ae - 1) // self.spacing + 1
+            if cnt[tb] < 0x7FFF and cnt[te] > -0xFFFF:
+                cnt[tb] += 1
+                cnt[te] -= 1
+
+        stack = self.cands[ar]
+        d = 0
+        dominated = False
+        while d < len(stack):
+            D = stack[d]
+            in_a = D.afirst < ab + MIN_PIECE and D.alast > ae - MIN_PIECE
+            in_b = ab < D.afirst + MIN_PIECE and ae > D.alast - MIN_PIECE
+            if in_a:
+                if in_b:
+                    if .9 * D.score >= cost:
+                        dominated = True
+                        break
+                    elif D.score <= .9 * cost:
+                        del stack[d]
+                    else:
+                        d += 1
+                else:
+                    if .9 * D.score >= cost:
+                        dominated = True
+                        break
+                    d += 1
+            else:
+                if in_b:
+                    if D.score <= .9 * cost:
+                        del stack[d]
+                    else:
+                        d += 1
+                else:
+                    d += 1
+        if dominated:
+            return
+
+        stack.insert(0, Candidate(score=cost, bread=bread_global, comp=comp,
+                                  afirst=ab, alast=ae, bfirst=bb, blast=be,
+                                  length=length, jumps=jumps))
+
+    # -- public entry --------------------------------------------------------
+
+    def process_hits(self, hits, comp: int) -> None:
+        """Chain the hits of one reference block in one orientation: hits =
+        (aread, global bread, apos, diag) arrays sorted by (aread, bread,
+        apos), ties in the order the seed match emits them."""
+        if len(hits[0]) == 0:
+            return
+        aread, bread, apos, diag = hits
+        apos1 = apos + 1                # 1-based end coords (map.c:1784)
+        bpos1 = apos1 - diag
+        n = len(aread)
+        brk = np.flatnonzero((np.diff(aread.astype(np.int64)) != 0) |
+                             (np.diff(bread.astype(np.int64)) != 0)) + 1
+        starts = np.concatenate([[0], brk])
+        ends = np.concatenate([brk, [n]])
+        for s, e in zip(starts, ends):
+            ar = int(aread[s])
+            br = int(bread[s])
+            scan = self._sweep_group(apos1[s:e].tolist(),
+                                     bpos1[s:e].tolist())
+            for h in scan:
+                if h.cost >= self.hithr and h.orig.best is h:
+                    self._consider(ar, h, br, comp)
+
