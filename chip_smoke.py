@@ -1093,7 +1093,7 @@ def _map_once(torch, work, seed, nreads, mode, switches, kernel, tag=None,
           f"overflow-fallback, {st['n_hostmin']} tiny-round host")
     print(f"launches {launches}  kernel time {st['kernel_ms']:.1f} ms "
           f"(CUDA events)  waves {st['total_waves']}  cell updates "
-          f"{st['cell_updates']}  align device {st['align_device_s']}s "
+          f"{st['total_waves'] * st['band_cap']}  align device {st['align_device_s']}s "
           f"host {st['align_host_s']}s")
     print(f"max_memory_allocated {peak} bytes")
     check(st["wave_mode"] == mode, f"the run took wave mode "

@@ -174,7 +174,7 @@ def _cold_caches():
     reporter._ref_seq_cache.clear()
 
 
-SUMMED = ("cell_updates", "n_lanes", "total_waves", "n_fallback",
+SUMMED = ("n_lanes", "total_waves", "n_fallback",
           "n_winmiss", "n_hostmin", "ref_index_cache_hits",
           "ref_index_builds", "kernel_ms", "align_device_s", "align_host_s")
 
@@ -191,6 +191,7 @@ def _map_blocks(work, blocks, cfg, out):
         st = mapper.LAST_STATS
         if tot is None:
             tot = dict(times=dict(st["times"]), wave_mode=st["wave_mode"],
+                       band_cap=st["band_cap"],
                        wave_mode_source=st["wave_mode_source"],
                        kernel_launches=dict(st["kernel_launches"]),
                        align_host_split=dict(st["align_host_split"]),
@@ -418,7 +419,8 @@ def run(k: Knobs, result: dict) -> bool:
     result["align_device_s"] = round(st["align_device_s"], 3)
     result["align_host_s"] = round(st["align_host_s"], 3)
     align = max(1e-9, st["times"].get("align", dt))
-    result["cell_updates_per_sec"] = round(st["cell_updates"] / align, 0)
+    result["cell_updates_per_sec"] = round(
+        st["total_waves"] * st["band_cap"] / align, 0)
     result["wave_lanes"] = st["n_lanes"]
     result["total_waves"] = st["total_waves"]
     result["wave_mode"] = st["wave_mode"]

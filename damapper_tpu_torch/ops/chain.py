@@ -32,6 +32,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..utils import spans
+
 HITMIN = 3        # map.c:34
 MAX_GAP = 1000    # map.c:36
 MIN_PIECE = 300   # map.c:37
@@ -281,7 +283,11 @@ class ChainState:
         state's device (None: the card) for groups within its capacity and
         the native sweep for the rest, with identical results.  native=True
         uses the C++ sweep (native/chain_sweep.cpp); falls back to the
-        Python sweep if the native library cannot be built."""
+        Python sweep if the native library cannot be built.
+
+        Spans (utils.spans) of the native and device sweeps: "chain.sweep"
+        (the chains of every group, their jumps as tuples) and "chain.push"
+        (each candidate through the dominance stack and the -p cover)."""
         n = len(hits)
         if n == 0:
             return
@@ -312,9 +318,12 @@ class ChainState:
 
     def _process_hits_native(self, hits, bstart: int, comp: int) -> None:
         apos1 = hits.apos + 1
-        for ar, br, *cand in self._native_sweep(hits.aread, hits.bread,
-                                                apos1, apos1 - hits.diag):
-            self._push_candidate(ar, *cand, br + bstart, comp)
+        with spans.span("chain.sweep"):
+            cands = self._native_sweep(hits.aread, hits.bread, apos1,
+                                       apos1 - hits.diag)
+        with spans.span("chain.push"):
+            for ar, br, *cand in cands:
+                self._push_candidate(ar, *cand, br + bstart, comp)
 
     def _native_sweep(self, aread, bread, apos1, bpos1) -> list:
         """The C++ sweep (native/chain_sweep.cpp) over hits sorted by
@@ -367,33 +376,35 @@ class ChainState:
         starts = np.concatenate([[0], brk])
         ends = np.concatenate([brk, [n]])
 
-        dev = chain_device.sweep_hits_device(apos1, bpos1, starts, ends,
-                                             self.kmer, self.device)
+        with spans.span("chain.sweep"):
+            dev = chain_device.sweep_hits_device(apos1, bpos1, starts, ends,
+                                                 self.kmer, self.device)
 
-        # native sweep over the concatenation of oversized groups (group
-        # order preserved; the native library segments by (aread, bread))
-        big = [gi for gi in range(len(starts)) if gi not in dev]
-        big_res: dict[int, list] = {}
-        if big:
-            rows = np.concatenate([np.arange(starts[gi], ends[gi])
-                                   for gi in big])
-            gi_of = {(int(aread[starts[gi]]), int(bread[starts[gi]])): gi
-                     for gi in big}
-            for ar, br, *cand in self._native_sweep(
-                    aread[rows], bread[rows], apos1[rows], bpos1[rows]):
-                big_res.setdefault(gi_of[(ar, br)], []).append(cand)
+            # native sweep over the concatenation of oversized groups (group
+            # order preserved; the native library segments by (aread, bread))
+            big = [gi for gi in range(len(starts)) if gi not in dev]
+            big_res: dict[int, list] = {}
+            if big:
+                rows = np.concatenate([np.arange(starts[gi], ends[gi])
+                                       for gi in big])
+                gi_of = {(int(aread[starts[gi]]), int(bread[starts[gi]])): gi
+                         for gi in big}
+                for ar, br, *cand in self._native_sweep(
+                        aread[rows], bread[rows], apos1[rows], bpos1[rows]):
+                    big_res.setdefault(gi_of[(ar, br)], []).append(cand)
 
-        for gi in range(len(starts)):
-            s, e = int(starts[gi]), int(ends[gi])
-            ar = int(aread[s])
-            br = int(bread[s])
-            if gi in dev:
-                ems = chain_device.emit_group(dev[gi], apos1[s:e],
-                                              bpos1[s:e], e - s, self.kmer,
-                                              self.hithr)
-            else:
-                ems = big_res.get(gi, [])
-            for (cost, ab, ae, bb, be, length, jumps) in ems:
-                if cost >= self.hithr:
-                    self._push_candidate(ar, cost, ab, ae, bb, be, length,
-                                         jumps, br + bstart, comp)
+            cands = []
+            for gi in range(len(starts)):
+                s, e = int(starts[gi]), int(ends[gi])
+                ar = int(aread[s])
+                br = int(bread[s])
+                if gi in dev:
+                    ems = chain_device.emit_group(dev[gi], apos1[s:e],
+                                                  bpos1[s:e], e - s,
+                                                  self.kmer, self.hithr)
+                else:
+                    ems = big_res.get(gi, [])
+                cands += [(ar, br, *em) for em in ems if em[0] >= self.hithr]
+        with spans.span("chain.push"):
+            for ar, br, *cand in cands:
+                self._push_candidate(ar, *cand, br + bstart, comp)

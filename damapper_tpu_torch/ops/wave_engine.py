@@ -31,7 +31,10 @@ pickle a round, as the JAX engine does; damapper_tpu_torch.tools.wave_replay
 replays such a dump, this engine against the host oracle.
 
 The engine's host seconds are split by step (``host_s``: upload, pull,
-trace, refine, oracle; see HOST_STEPS).  DAMAPPER_WAVE_KIT=1 also keeps a
+trace, refine, oracle; see HOST_STEPS); each batch is the span
+"engine.batch" and each step's interval the span "engine.<step>" inside it
+(utils.spans), and the lanes launched are counted there
+("engine.launch_lanes").  DAMAPPER_WAVE_KIT=1 also keeps a
 log of every launch (``kit_log``, the newest DAMAPPER_WAVE_KIT_CAP entries):
 its direction, lanes, each lane's waves, its kernel ms and the host seconds
 by step that followed it in its round (tools/wave_kit.py reads it).  Neither
@@ -55,6 +58,7 @@ import torch
 from . import wave as _host
 from . import wave_cuda as _wc
 from . import wave_persistent as _wp
+from ..utils import spans
 from .spec import AlignSpec
 from .wave_cuda import NREC_IN, OUT_FIELDS, wave_lanes
 from .wave_persistent import (persistent_windows, wave_lanes_persistent,
@@ -240,15 +244,18 @@ class WaveEngine:
             self.kit_log = collections.deque(maxlen=int(os.environ.get(
                 "DAMAPPER_WAVE_KIT_CAP", KIT_CAP)))
         self._entry = None      # the kit entry host steps are charged to
-        self._clk = 0.0         # the end of the round's last host step
+        self._clk = 0           # the end of the round's last host step (ns)
 
     def _step(self, step: str):
         """Charge the host seconds since the round's last step to ``step``
-        (and to the kit entry of the round's latest launch)."""
-        t = time.perf_counter()
-        self.host_s[step] += t - self._clk
+        (and to the kit entry of the round's latest launch), and make the
+        interval the span "engine.<step>"."""
+        t = spans.now()
+        dt = (t - self._clk) / 1e9
+        self.host_s[step] += dt
         if self._entry is not None:
-            self._entry["host_s"][step] += t - self._clk
+            self._entry["host_s"][step] += dt
+        spans.interval("engine." + step, self._clk, t)
         self._clk = t
 
     def _kit_entry(self, which, n, persistent):
@@ -319,6 +326,7 @@ class WaveEngine:
             z = np.zeros(0, np.int32)
             return WaveResult(*([z] * 11), np.zeros((0, P, 4), np.int32),
                               z, np.zeros(0, bool), z)
+        spans.count("engine.launch_lanes", n)
         # longest lanes first: blocks are scheduled in launch order, so the
         # long lanes start early and the short ones fill in behind them
         # (the permutation is undone on output; results are unchanged)
@@ -445,7 +453,8 @@ class WaveEngine:
         (for fallback + trace walking).  Returns list of (apath, bpath)."""
         _t0 = time.perf_counter()
         try:
-            return self._batch_inner(Adev, Bdev, Anp, Bnp, seeds)
+            with spans.span("engine.batch"):
+                return self._batch_inner(Adev, Bdev, Anp, Bnp, seeds)
         finally:
             self.t_batch += time.perf_counter() - _t0
 
@@ -459,7 +468,7 @@ class WaveEngine:
     def _batch_inner(self, Adev, Bdev, Anp, Bnp, seeds):
         n = len(seeds)
         self.n_total += n
-        self._clk = time.perf_counter()
+        self._clk = spans.now()
         self._entry = None
         TS = self.spec.trace_space
         out = [None] * n

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 
 import numpy as np
 
@@ -47,6 +46,7 @@ from ..ops.seeds import match_seeds, match_seeds_multi
 from ..ops.spec import new_align_spec
 from ..ops.wave_engine import WaveEngine, resolve_device
 from ..parallel import mesh as pmesh
+from ..utils import spans
 from .reporter import Reporter
 
 WAVE_BACKENDS = ("device", "oracle")
@@ -234,10 +234,38 @@ def _ref_cache_key(pwd, aroot_stub, stubp, k, cfg):
             tuple(cfg.masks), str(cfg.device))
 
 
+#: the stage seconds of LAST_STATS["times"], each the sum of its spans
+STAGE_SPANS = {"load": ("load.reads", "load.ref", "load.full"),
+               "index": ("index",), "match": ("match",), "chain": ("chain",),
+               "align": ("reporter",)}
+
+
+def _stage_seconds(seconds) -> dict:
+    return {k: sum(seconds(n) for n in names)
+            for k, names in STAGE_SPANS.items()}
+
+
 def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
                  out_dir: str = "."):
     """Map one reads DB/block against a reference DAM.  Returns
-    (a_las_path, b_las_path or None)."""
+    (a_las_path, b_las_path or None).
+
+    The call is the span "block" and its stages are spans inside it
+    (utils.spans): LAST_STATS holds their totals ("spans": {name: {"s",
+    "self_s", "n"}}), the call's counters ("counts") and the stage seconds
+    ("times", sums of STAGE_SPANS), beside the run's telemetry."""
+    global LAST_STATS
+    spans.begin_call()
+    with spans.span("block"):
+        paths, stats = _map_block(ref_path, reads_path, cfg, out_dir)
+    tot = spans.end_call()
+    LAST_STATS = dict(times=_stage_seconds(
+        lambda n: tot["spans"].get(n, {"s": 0.})["s"]), **stats, **tot)
+    return paths
+
+
+def _map_block(ref_path, reads_path, cfg, out_dir):
+    """run_damapper's body: (paths, the run's telemetry)."""
     pwd, aroot, isdam = dbio._split_db_path(ref_path)
     aroot_stub, _ = dbio._strip_part(aroot)
     stubp = os.path.join(pwd, aroot_stub + (".dam" if isdam else ".db"))
@@ -266,33 +294,34 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
     # host stages, the reference index is sharded over the ranks, and only
     # rank 0 writes the output files
     multiproc = mesh is not None and dix._mesh_is_multiprocess(mesh)
-    times = {"load": 0., "index": 0., "match": 0., "chain": 0., "align": 0.}
     use_device_index = cfg.index_backend == "device"
+    # the index's device work is asynchronous: its span ends in a
+    # synchronize on the card, so the match is not charged for it
+    on_card = cfg.device.type == "cuda"
     # dp x ref sharded matching: the reads' indexes sharded over "dp", each
     # reference block's index over "ref"
     sharded_ix = (use_device_index and mesh is not None
                   and "ref" in mesh.axis_names)
-    _t = time.time()
-    reads_db = read_block(reads_path, cfg.masks, cfg.kmer)
-    times["load"] += time.time() - _t
-    _t = time.time()
-    if use_device_index:
-        # one upload serves both orientations; the reads' revcomp
-        # index, built once, lets both orientations match against a single
-        # forward reference index per block (hits stay identical by
-        # emission-time frame mirroring)
-        reads_seq_dev = dix.device_upload_seq(reads_db, cfg.device)
-        bindex = dix.device_sort_kmers(reads_db, cfg.kmer, cfg.suppress,
-                                       seq_dev=reads_seq_dev)
-        bindex_rc = dix.device_sort_kmers(reads_db, cfg.kmer, cfg.suppress,
-                                          comp=True, seq_dev=reads_seq_dev)
-        del reads_seq_dev
-        if sharded_ix:
-            bindex = dix.shard_index(bindex, mesh, "dp")
-            bindex_rc = dix.shard_index(bindex_rc, mesh, "dp")
-    else:
-        bindex = sort_kmers(reads_db, cfg.kmer, cfg.suppress)
-    times["index"] += time.time() - _t
+    with spans.span("load.reads"):
+        reads_db = read_block(reads_path, cfg.masks, cfg.kmer)
+    with spans.span("index", sync=on_card):
+        if use_device_index:
+            # one upload serves both orientations; the reads' revcomp
+            # index, built once, lets both orientations match against a
+            # single forward reference index per block (hits stay
+            # identical by emission-time frame mirroring)
+            reads_seq_dev = dix.device_upload_seq(reads_db, cfg.device)
+            bindex = dix.device_sort_kmers(reads_db, cfg.kmer, cfg.suppress,
+                                           seq_dev=reads_seq_dev)
+            bindex_rc = dix.device_sort_kmers(reads_db, cfg.kmer,
+                                              cfg.suppress, comp=True,
+                                              seq_dev=reads_seq_dev)
+            del reads_seq_dev
+            if sharded_ix:
+                bindex = dix.shard_index(bindex, mesh, "dp")
+                bindex_rc = dix.shard_index(bindex_rc, mesh, "dp")
+        else:
+            bindex = sort_kmers(reads_db, cfg.kmer, cfg.suppress)
     if cfg.verbose:
         # stage counters mirroring the reference -v (map.c:692-697,792-799)
         print(f"\n   Kmer count = {len(bindex):,}\n"
@@ -311,9 +340,8 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
     for k in range(1, nblocks + 1):
         blk_path = os.path.join(pwd, f"{aroot_stub}.{k}"
                                 + (".dam" if isdam else ".db"))
-        _t = time.time()
-        ref_blk = read_block(blk_path, cfg.masks, cfg.kmer)
-        times["load"] += time.time() - _t
+        with spans.span("load.ref"):
+            ref_blk = read_block(blk_path, cfg.masks, cfg.kmer)
         bstart = ref_blk.tfirst
 
         # sub-partition large blocks so each index sort stays cache-resident
@@ -331,12 +359,19 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
             if comp and not use_device_index:
                 ref_blk.complement_inplace()
             db_bytes = reads_db.sizeof() + ref_blk.sizeof()
-            _t = time.time()
-            if use_device_index:
-                # one forward index per block serves both orientations: the
-                # reads' revcomp index provides the complement pass
-                # (damapper.c:851-861 without the second Sort_Kmers)
-                if comp == 0:
+            with spans.span("index", sync=on_card):
+                if not use_device_index:
+                    if use_sub:
+                        subs = sort_kmers_partitioned(ref_blk, cfg.kmer,
+                                                      sub_bases, kscratch)
+                        aindex = None
+                    else:
+                        aindex = sort_kmers(ref_blk, cfg.kmer, cfg.suppress,
+                                            scratch=kscratch)
+                elif comp == 0:
+                    # one forward index per block serves both orientations:
+                    # the reads' revcomp index provides the complement pass
+                    # (damapper.c:851-861 without the second Sort_Kmers)
                     if cached is not None:
                         cache_hits += 1
                         aindex = cached
@@ -349,8 +384,7 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
                             aindex = dix.shard_index(aindex, mesh, "ref")
                         else:
                             _ref_cache_put(rkey, aindex)
-                times["index"] += time.time() - _t
-                _t = time.time()
+            with spans.span("match"):
                 if sharded_ix:
                     # two sharded matches a block: the reads' forward
                     # index, then their revcomp index in the complement
@@ -358,38 +392,28 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
                     hits = dix.device_match_seeds_sharded(
                         bindex_rc if comp else bindex, aindex, mesh,
                         cfg.mem_limit, db_bytes, comp_frame=bool(comp))
-                elif comp == 0:
+                elif use_device_index and comp == 0:
                     # one combined join serves both orientations; the comp
                     # hits wait for the comp pass of the loop
                     hits, pending_cmp = dix.device_match_seeds_pair(
                         bindex, bindex_rc, aindex, cfg.mem_limit, db_bytes)
-                else:
+                elif use_device_index:
                     hits = pending_cmp
-            elif use_sub:
-                subs = sort_kmers_partitioned(ref_blk, cfg.kmer, sub_bases,
-                                              kscratch)
-                aindex = None
-                times["index"] += time.time() - _t
-                _t = time.time()
-                hits = match_seeds_multi(bindex, subs, cfg.mem_limit,
-                                         db_bytes)
-            else:
-                aindex = sort_kmers(ref_blk, cfg.kmer, cfg.suppress,
-                                    scratch=kscratch)
-                times["index"] += time.time() - _t
-                _t = time.time()
-                hits = match_seeds(bindex, aindex, cfg.mem_limit, db_bytes)
-            times["match"] += time.time() - _t
+                elif use_sub:
+                    hits = match_seeds_multi(bindex, subs, cfg.mem_limit,
+                                             db_bytes)
+                else:
+                    hits = match_seeds(bindex, aindex, cfg.mem_limit,
+                                       db_bytes)
             if cfg.verbose:
                 nidx = (sum(len(i) for i, _ in subs) if aindex is None
                         else len(aindex))
                 print(f"   Block {k} comp={comp}: index = {nidx:,} "
                       f"kmers, hit count = {len(hits):,}", file=sys.stderr)
             before = sum(len(c) for c in state.cands)
-            _t = time.time()
-            state.process_hits(hits, bstart, comp,
-                               device=cfg.chain_backend == "device")
-            times["chain"] += time.time() - _t
+            with spans.span("chain"):
+                state.process_hits(hits, bstart, comp,
+                                   device=cfg.chain_backend == "device")
             if cfg.verbose:
                 # candidate counters (map.c:3184-3208 epilogue)
                 tfilt = sum(len(c) for c in state.cands)
@@ -415,9 +439,10 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
             ref_blk.complement_inplace()
         ref_full = ref_blk
     else:
-        ref_full = read_block(os.path.join(pwd, aroot_stub
-                                           + (".dam" if isdam else ".db")),
-                              [], cfg.kmer)
+        with spans.span("load.full"):
+            ref_full = read_block(os.path.join(
+                pwd, aroot_stub + (".dam" if isdam else ".db")), [],
+                cfg.kmer)
 
     engine = None
     if cfg.wave_backend == "device":
@@ -430,14 +455,17 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
     rep = Reporter(spec, cfg.kmer, cfg.spacing, cfg.best_tie,
                    do_a=cfg.do_a, do_b=cfg.do_b, engine=engine)
     profile_out = [] if cfg.profile else None
-    _t = time.time()
-    a_recs, b_recs = rep.run(reads_db, ref_full, state,
-                             astart=reads_db.tfirst, profile_out=profile_out)
-    times["align"] = time.time() - _t
+    with spans.span("reporter"):
+        a_recs, b_recs = rep.run(reads_db, ref_full, state,
+                                 astart=reads_db.tfirst,
+                                 profile_out=profile_out)
+    if engine is not None:
+        spans.count("engine.launches", sum(engine.launches.values()))
     if cfg.verbose:
         print(f"      {len(a_recs):,} mapped segments", file=sys.stderr)
         print("      stage seconds: " + "  ".join(
-            f"{k}={v:.2f}" for k, v in times.items()), file=sys.stderr)
+            f"{k}={v:.2f}" for k, v in _stage_seconds(spans.seconds).items()),
+            file=sys.stderr)
         print(f"      index {cfg.index_backend} (DAMAPPER_INDEX), chain "
               f"{cfg.chain_backend} (DAMAPPER_CHAIN), join "
               f"{dix._join_mode()} (DAMAPPER_JOIN), upload "
@@ -459,64 +487,56 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
     # is the output, the other ranks skip the (racy) file writes
     rank0 = not multiproc or mesh.rank == 0
     a_path = b_path = None
-    if cfg.do_a:
-        a_recs = lasio.sort_las(a_recs, cfg.map_order)
-        a_path = os.path.join(out_dir, f"{broot}.{aroot}.las")
-        if rank0:
-            lasio.write_las(a_path, a_recs, cfg.spacing)
-    if cfg.do_b:
-        b_recs = lasio.sort_las(b_recs, cfg.map_order)
-        b_path = os.path.join(out_dir, f"{aroot}.{broot}.las")
-        if rank0:
-            lasio.write_las(b_path, b_recs, cfg.spacing)
+    with spans.span("write"):
+        if cfg.do_a:
+            a_recs = lasio.sort_las(a_recs, cfg.map_order)
+            a_path = os.path.join(out_dir, f"{broot}.{aroot}.las")
+            if rank0:
+                lasio.write_las(a_path, a_recs, cfg.spacing)
+        if cfg.do_b:
+            b_recs = lasio.sort_las(b_recs, cfg.map_order)
+            b_path = os.path.join(out_dir, f"{aroot}.{broot}.las")
+            if rank0:
+                lasio.write_las(b_path, b_recs, cfg.spacing)
 
-    if cfg.profile and rank0:
-        anno = np.zeros(reads_db.nreads + 1, np.int64)
-        data = bytearray()
-        for i, logv in enumerate(profile_out):
-            anno[i] = len(data)
-            data += logv.tobytes()
-        anno[reads_db.nreads] = len(data)
-        dbio.write_track(os.path.join(out_dir, "." + broot), "prof",
-                         anno, bytes(data), size=8)
+        if cfg.profile and rank0:
+            anno = np.zeros(reads_db.nreads + 1, np.int64)
+            data = bytearray()
+            for i, logv in enumerate(profile_out):
+                anno[i] = len(data)
+                data += logv.tobytes()
+            anno[reads_db.nreads] = len(data)
+            dbio.write_track(os.path.join(out_dir, "." + broot), "prof",
+                             anno, bytes(data), size=8)
 
-    # run telemetry for benchmarks (stage seconds + wave-DP work): the
-    # cell-updates metric is waves x band-capacity, the batched analog of
-    # the reference's WAVE_STATS counters (align.c:297-312).  The keys are
-    # the JAX package's, plus the tiny-round host lanes and the summed
-    # kernel time (CUDA events; 0 off the card), the wave mode and the
-    # launches of each kernel
-    global LAST_STATS
-    LAST_STATS = dict(times=dict(times),
-                      index_backend=cfg.index_backend,
-                      chain_backend=cfg.chain_backend,
-                      mesh=None if mesh is None else mesh.shape,
-                      mesh_ranks=(1 if mesh is None
-                                  else len(set(mesh.ranks.flat))),
-                      ref_index_cache_hits=cache_hits,
-                      ref_index_builds=cache_builds,
-                      total_waves=getattr(engine, "total_waves", 0),
-                      band_cap=getattr(engine, "W", 0),
-                      cell_updates=(getattr(engine, "total_waves", 0)
-                                    * getattr(engine, "W", 0)),
-                      n_fallback=getattr(engine, "n_fallback", 0),
-                      n_winmiss=getattr(engine, "n_winmiss", 0),
-                      wave_mode=getattr(engine, "mode", "oracle"),
-                      # where the mode came from: arg, env, file, default
-                      wave_mode_source=getattr(engine, "mode_source", None),
-                      kernel_launches=dict(getattr(engine, "launches", {})),
-                      n_lanes=getattr(engine, "n_total", 0),
-                      n_hostmin=getattr(engine, "n_hostmin", 0),
-                      kernel_ms=getattr(engine, "kernel_ms", 0.),
-                      # align-stage split: device kernel+pull wall vs the
-                      # host side (trace extraction, refinement, fallback)
-                      align_device_s=round(getattr(engine, "t_run", 0.), 2),
-                      align_host_s=round(
-                          max(0., getattr(engine, "t_batch", 0.)
-                              - getattr(engine, "t_run", 0.)), 2),
-                      # the engine's host seconds by step (HOST_STEPS)
-                      align_host_split=dict(getattr(engine, "host_s", {})))
-    return a_path, b_path
+    # run telemetry for benchmarks: the keys are the JAX package's (its
+    # cell_updates is total_waves x band_cap), plus the tiny-round host
+    # lanes and the summed kernel time (CUDA events; 0 off the card), the
+    # wave mode and the launches of each kernel
+    stats = dict(index_backend=cfg.index_backend,
+                 chain_backend=cfg.chain_backend,
+                 mesh=None if mesh is None else mesh.shape,
+                 ref_index_cache_hits=cache_hits,
+                 ref_index_builds=cache_builds,
+                 total_waves=getattr(engine, "total_waves", 0),
+                 band_cap=getattr(engine, "W", 0),
+                 n_fallback=getattr(engine, "n_fallback", 0),
+                 n_winmiss=getattr(engine, "n_winmiss", 0),
+                 wave_mode=getattr(engine, "mode", "oracle"),
+                 # where the mode came from: arg, env, file, default
+                 wave_mode_source=getattr(engine, "mode_source", None),
+                 kernel_launches=dict(getattr(engine, "launches", {})),
+                 n_lanes=getattr(engine, "n_total", 0),
+                 n_hostmin=getattr(engine, "n_hostmin", 0),
+                 kernel_ms=getattr(engine, "kernel_ms", 0.),
+                 # align-stage split: device kernel+pull wall vs the host
+                 # side (trace extraction, refinement, fallback)
+                 align_device_s=getattr(engine, "t_run", 0.),
+                 align_host_s=max(0., getattr(engine, "t_batch", 0.)
+                                  - getattr(engine, "t_run", 0.)),
+                 # the engine's host seconds by step (HOST_STEPS)
+                 align_host_split=dict(getattr(engine, "host_s", {})))
+    return (a_path, b_path), stats
 
 
 LAST_STATS: dict = {}

@@ -34,6 +34,7 @@ from ..io.las import (BEST_FLAG, COMP_FLAG, LA, NEXT_FLAG, START_FLAG,
 from ..ops import device_index as dix
 from ..ops.chain import HITMIN
 from ..ops.wave import ACOMP_FLAG, PathRec, local_alignment
+from ..utils import spans
 
 CHAIN_OFF = 500.   # map.c:42
 CHAIN_OVL = 400.   # map.c:43
@@ -328,25 +329,33 @@ class Reporter:
 
         reads_db: loaded reads block; ref_db: loaded FULL reference DB;
         state: ChainState with candidates; astart: global index of the block's
-        first read (tfirst)."""
+        first read (tfirst).
+
+        Spans (utils.spans): the batched alignment's, then
+        "reporter.select" (collation and selection of every read; with no
+        engine, each read's alignment too) and "reporter.profile" (the -p
+        values, which selection does not touch)."""
         a_out: list[LA] = []
         b_out: list[LA] = []
         if self.engine is not None:
             per_read = self._align_block_batched(reads_db, ref_db, state)
         else:
             per_read = None
-        for ar in range(reads_db.nreads):
-            if per_read is None:
-                amatch, bmatch = self._align_read(ar, reads_db, ref_db, state)
-            else:
-                amatch, bmatch = self._collate_read(ar, per_read[ar], state)
-            self._select(ar + astart, amatch, bmatch, a_out, b_out)
-            if profile_out is not None:
-                cnt = state.cover[ar]
-                c = np.cumsum(cnt)
-                logv = np.array([special_log(int(x)) for x in c],
-                                dtype=np.uint8)
-                profile_out.append(logv)
+        with spans.span("reporter.select"):
+            for ar in range(reads_db.nreads):
+                if per_read is None:
+                    amatch, bmatch = self._align_read(ar, reads_db, ref_db,
+                                                      state)
+                else:
+                    amatch, bmatch = self._collate_read(ar, per_read[ar],
+                                                        state)
+                self._select(ar + astart, amatch, bmatch, a_out, b_out)
+        if profile_out is not None:
+            with spans.span("reporter.profile"):
+                for ar in range(reads_db.nreads):
+                    c = np.cumsum(state.cover[ar])
+                    profile_out.append(np.array(
+                        [special_log(int(x)) for x in c], dtype=np.uint8))
         return a_out, b_out
 
     # -- alignment of all candidates of one read ------------------------------
@@ -444,71 +453,82 @@ class Reporter:
         SEPARATELY: the reference section is identical for every read
         block of a job list, so its upload is served from a process-level
         cache (_ref_seq_cache) instead of being re-shipped per block (the
-        upload analog of the ref-index cache)."""
-        nreads = reads_db.nreads
-        flat_a, comp_off, boffs, rlens = align_memory_a(reads_db)
-        ref_seq = ref_db.seq
-        dev_a = _upload_section(flat_a, boffs, rlens, self.engine.device)
-        dev_b = _ref_seq_cached(ref_db, self.engine.device)
+        upload analog of the ref-index cache).
 
-        tasks = []
-        per_read = [[] for _ in range(nreads)]
-        for ar in range(nreads):
-            alen = int(reads_db.reads["rlen"][ar])
-            aboff = int(reads_db.reads["boff"][ar])
-            for ci, cand in enumerate(state.cands[ar]):
-                blen = int(ref_db.reads["rlen"][cand.bread])
-                bboff = int(ref_db.reads["boff"][cand.bread])
-                t = dict(ar=ar, ci=ci, cand=cand, alen=alen, blen=blen,
-                         abase=(comp_off + aboff) if cand.comp else aboff,
-                         bbase=bboff,
-                         pos=0, apos=cand.alast, bpos=cand.blast,
-                         alast=alen + 1, results=[])
-                tasks.append(t)
-                per_read[ar].append(t)
+        Spans: "reporter.upload", "reporter.tasks", then one
+        "reporter.round" a round (the engine's spans inside it)."""
+        nreads = reads_db.nreads
+        with spans.span("reporter.upload"):
+            flat_a, comp_off, boffs, rlens = align_memory_a(reads_db)
+            ref_seq = ref_db.seq
+            dev_a = _upload_section(flat_a, boffs, rlens, self.engine.device)
+            dev_b = _ref_seq_cached(ref_db, self.engine.device)
+
+        with spans.span("reporter.tasks"):
+            tasks = []
+            per_read = [[] for _ in range(nreads)]
+            for ar in range(nreads):
+                alen = int(reads_db.reads["rlen"][ar])
+                aboff = int(reads_db.reads["boff"][ar])
+                for ci, cand in enumerate(state.cands[ar]):
+                    blen = int(ref_db.reads["rlen"][cand.bread])
+                    bboff = int(ref_db.reads["boff"][cand.bread])
+                    t = dict(ar=ar, ci=ci, cand=cand, alen=alen, blen=blen,
+                             abase=(comp_off + aboff) if cand.comp else aboff,
+                             bbase=bboff,
+                             pos=0, apos=cand.alast, bpos=cand.blast,
+                             alast=alen + 1, results=[])
+                    tasks.append(t)
+                    per_read[ar].append(t)
 
         active = tasks
         while active:
-            seeds = []
-            run_tasks = []
-            nxt_active = []
-            for t in active:
-                jumps = t["cand"].jumps
-                found = False
-                while t["pos"] < len(jumps):
-                    adisp, bdisp = jumps[t["pos"]]
-                    t["pos"] += 1
-                    t["apos"] -= adisp
-                    t["bpos"] -= bdisp
-                    if t["apos"] < t["alast"]:
-                        found = True
-                        break
-                if not found:
-                    continue
-                if t["cand"].comp:
-                    ac = t["alen"] - t["apos"]
-                    bc = t["blen"] - t["bpos"]
-                    dg, ad = ac - bc, ac + bc
-                    fl = ACOMP_FLAG
-                else:
-                    dg, ad = t["apos"] - t["bpos"], t["apos"] + t["bpos"]
-                    fl = 0
-                seeds.append(dict(abase=t["abase"], alen=t["alen"],
-                                  bbase=t["bbase"], blen=t["blen"],
-                                  diag=dg, anti=ad, flags=fl))
-                run_tasks.append(t)
-            if not run_tasks:
-                break
-            results = self.engine.local_alignment_batch(
-                dev_a, dev_b, flat_a, ref_seq, seeds)
-            for t, (apath, bpath) in zip(run_tasks, results):
-                if apath.aepos - apath.abpos >= self.hithr:
-                    t["alast"] = apath.abpos
-                    t["results"].append((apath, bpath))
-                nxt_active.append(t)
-            active = nxt_active
-
+            with spans.span("reporter.round"):
+                active = self._round(active, dev_a, dev_b, flat_a, ref_seq)
         return per_read
+
+    def _round(self, active, dev_a, dev_b, flat_a, ref_seq) -> list:
+        """One round: the next seed of every live task, aligned in one
+        engine batch and folded into the tasks; returns the tasks still
+        live."""
+        seeds = []
+        run_tasks = []
+        nxt_active = []
+        for t in active:
+            jumps = t["cand"].jumps
+            found = False
+            while t["pos"] < len(jumps):
+                adisp, bdisp = jumps[t["pos"]]
+                t["pos"] += 1
+                t["apos"] -= adisp
+                t["bpos"] -= bdisp
+                if t["apos"] < t["alast"]:
+                    found = True
+                    break
+            if not found:
+                continue
+            if t["cand"].comp:
+                ac = t["alen"] - t["apos"]
+                bc = t["blen"] - t["bpos"]
+                dg, ad = ac - bc, ac + bc
+                fl = ACOMP_FLAG
+            else:
+                dg, ad = t["apos"] - t["bpos"], t["apos"] + t["bpos"]
+                fl = 0
+            seeds.append(dict(abase=t["abase"], alen=t["alen"],
+                              bbase=t["bbase"], blen=t["blen"],
+                              diag=dg, anti=ad, flags=fl))
+            run_tasks.append(t)
+        if not run_tasks:
+            return []
+        results = self.engine.local_alignment_batch(
+            dev_a, dev_b, flat_a, ref_seq, seeds)
+        for t, (apath, bpath) in zip(run_tasks, results):
+            if apath.aepos - apath.abpos >= self.hithr:
+                t["alast"] = apath.abpos
+                t["results"].append((apath, bpath))
+            nxt_active.append(t)
+        return nxt_active
 
     def _collate_read(self, ar, read_tasks, state):
         """Assemble a read's batched results in candidate order and apply the
