@@ -223,7 +223,7 @@ def phase_build():
         jobs = [ex.submit(wave_cuda.build, True),
                 ex.submit(wave_persistent.build, True),
                 ex.submit(native.kmer_lib), ex.submit(native.chain_lib),
-                ex.submit(native.radix_lib),
+                ex.submit(native.radix_lib), ex.submit(native.trace_lib),
                 # phase 10's forced builds of the dense twin's switch
                 ex.submit(wave_sweep.build_forced)]
         for j in jobs:

@@ -352,6 +352,7 @@ def build_libraries(dev) -> float:
     native.chain_lib()
     native.kmer_lib()
     native.radix_lib()
+    native.trace_lib()
     if dev.type == "cuda":
         import torch
         from .ops import wave_cuda, wave_persistent

@@ -124,3 +124,20 @@ def kmer_lib():
             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
         _kmer_lib = lib
     return _kmer_lib
+
+
+_trace_lib = None
+
+
+def trace_lib():
+    """ctypes handle to the wave engine's trace walk (lazy build)."""
+    global _trace_lib
+    if _trace_lib is None:
+        lib = ctypes.CDLL(str(_build("trace_walk")))
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.trace_forward.restype = i64
+        lib.trace_forward.argtypes = [i64, i64] + [p] * 13
+        lib.trace_reverse.restype = i64
+        lib.trace_reverse.argtypes = [i64, i64] + [p] * 7 + [i64] + [p] * 12
+        _trace_lib = lib
+    return _trace_lib

@@ -8,7 +8,11 @@ double-pass refinement (align.c:1810-1854) -> lanes the kernel flags as
 overflowed (band, pool or wave cap) re-aligned by the host oracle
 (ops.wave.local_alignment, bit-identical), as are whole rounds smaller than
 ``host_min`` lanes.  Each wave direction of a round is ONE kernel launch
-over all its lanes.
+over all its lanes, and each pass's trace walk ONE call over all its lanes
+(ops.trace_walk: native/trace_walk.cpp, or ops.wave's plain walk where the
+native library cannot be loaded); the traces stay flat until the round's
+paths are built.  The walked lanes are counted ("engine.walk_lanes", and
+"engine.walk_native_lanes" for the native walk's).
 
 The mode is chosen as the JAX package chooses it (resolve_wave_mode: the
 explicit argument, then the environment, then the measured mode file
@@ -55,9 +59,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import trace_walk as _tw
 from . import wave as _host
 from . import wave_cuda as _wc
 from . import wave_persistent as _wp
+from .. import native
 from ..utils import spans
 from .spec import AlignSpec
 from .wave_cuda import NREC_IN, OUT_FIELDS, wave_lanes
@@ -245,6 +251,7 @@ class WaveEngine:
                 "DAMAPPER_WAVE_KIT_CAP", KIT_CAP)))
         self._entry = None      # the kit entry host steps are charged to
         self._clk = 0           # the end of the round's last host step (ns)
+        self._tlib = None       # the native trace walk (False: none)
 
     def _step(self, step: str):
         """Charge the host seconds since the round's last step to ``step``
@@ -511,134 +518,135 @@ class WaveEngine:
         f = self._run("fwd", abase, bbase, anti, diag, aoffp, boffp,
                       Adev, Bdev, sortkey=np.minimum(alen - x0, blen - y0))
 
-        apaths = [None] * n
-        fwd_a = [None] * n
-        fwd_b = [None] * n
+        # the round's paths, a column a field; the traces stay flat
+        # (trace_walk) until the paths are built at the round's end
+        lib = self._trace_lib()
+        orc = f.overflow.copy()         # the lanes the oracle re-aligns
+        ab, bb, ae, be, df = (np.zeros(n, np.int64) for _ in range(5))
+        live = np.flatnonzero(~orc)
+        trim = _reach_select(f, live, self.spec.reach)
+        fwa, fwa_off, fwb, fwb_off, low = self._walk(
+            _tw.forward, lib, f.pool, live, trim, anti[live])
+        ae[live], be[live], df[live] = trim[:3]
         low2 = np.zeros(n, np.int32)
-        fallback = set(np.flatnonzero(f.overflow).tolist())
-        for i in range(n):
-            if i in fallback:
-                continue
-            trimx, trimy, trimd, trimha, trimhb = _reach_select(
-                f, i, self.spec.reach)
-            lowi, fwd, btr = _host.extract_forward_traces(
-                f.pool[i], trimha, trimhb, trimx, trimy, trimd, int(anti[i]))
-            apaths[i] = _host.PathRec(aepos=fwd.aepos, bepos=fwd.bepos,
-                                      diffs=fwd.diffs)
-            fwd_a[i] = fwd.trace
-            fwd_b[i] = btr
-            low2[i] = lowi
+        low2[live] = low
         self._step("trace")
 
         r = self._run("rev", abase, bbase, anti, low2, aoffp, boffp,
                       Adev, Bdev,
                       sortkey=np.minimum((anti + low2) // 2,
                                          (anti - low2) // 2))
-        for i in range(n):
-            if i in fallback:
-                continue
-            if r.overflow[i]:
-                fallback.add(i)
-                continue
-            trimx, trimy, trimd, trimha, trimhb = _reach_select(
-                r, i, self.spec.reach)
-            ap = apaths[i]
-            a_pre, b_pre = _host.extract_reverse_traces(
-                r.pool[i], trimha, trimhb, trimx, trimy, trimd, TS,
-                int(aoffp[i]), int(boffp[i]), fwd_a[i], fwd_b[i])
-            ap.abpos, ap.bbpos = trimx, trimy
-            ap.diffs = ap.diffs + trimd
-            fwd_a[i] = a_pre + fwd_a[i]
-            fwd_b[i] = b_pre + fwd_b[i]
+        orc |= r.overflow
+        tra, trb = _tw.RoundTraces(n), _tw.RoundTraces(n)
+        lanes = np.flatnonzero(~orc)
+        pos = np.searchsorted(live, lanes)      # the lanes' forward walks
+        trim = _reach_select(r, lanes, self.spec.reach)
+        ta, oa, tb, ob = self._walk(
+            _tw.reverse, lib, r.pool, lanes, trim, TS, aoffp[lanes],
+            boffp[lanes], (fwa, fwa_off[pos], fwa_off[pos + 1],
+                           fwb, fwb_off[pos], fwb_off[pos + 1]))
+        ab[lanes], bb[lanes] = trim[:2]
+        df[lanes] += trim[2]
+        tra.put(lanes, ta, oa)
+        trb.put(lanes, tb, ob)
         self._step("trace")
 
         # fshort/rshort double-pass refinement (align.c:1810-1854)
-        redo_f, redo_r = [], []
-        for i in range(n):
-            if i in fallback:
-                continue
-            ap = apaths[i]
-            fshort = (ap.aepos + ap.bepos) - int(anti[i]) < _host.DUB_TRIM
-            rshort = int(anti[i]) - (ap.abpos + ap.bbpos) < _host.DUB_TRIM
-            if fshort and rshort:
-                ap.aepos = ap.abpos = (ap.abpos + ap.aepos) // 2
-                ap.bepos = ap.bbpos = (ap.bbpos + ap.bepos) // 2
-                fwd_a[i] = []
-                fwd_b[i] = []
-            elif fshort:
-                redo_f.append(i)
-            elif rshort:
-                redo_r.append(i)
+        fshort = ~orc & ((ae + be) - anti < _host.DUB_TRIM)
+        rshort = ~orc & (anti - (ab + bb) < _host.DUB_TRIM)
+        both = fshort & rshort
+        ae[both] = ab[both] = (ab[both] + ae[both]) // 2
+        be[both] = bb[both] = (bb[both] + be[both]) // 2
+        tra.clear(both)
+        trb.clear(both)
+        redo_f = np.flatnonzero(fshort & ~rshort)
+        redo_r = np.flatnonzero(rshort & ~fshort)
         self._step("refine")
 
-        if redo_f:
-            idx = np.array(redo_f, np.int32)
-            d2 = np.array([apaths[i].abpos - apaths[i].bbpos
-                           for i in redo_f], np.int32)
-            a2 = np.array([apaths[i].abpos + apaths[i].bbpos
-                           for i in redo_f], np.int32)
+        if len(redo_f):
+            idx = redo_f
+            d2 = (ab - bb)[idx].astype(np.int32)
+            a2 = (ab + bb)[idx].astype(np.int32)
             f2 = self._run("fwd", abase[idx], bbase[idx], a2, d2,
                            aoffp[idx], boffp[idx], Adev, Bdev,
                            sortkey=np.minimum(alen[idx] - (a2 + d2) // 2,
                                               blen[idx] - (a2 - d2) // 2))
-            for j, i in enumerate(redo_f):
-                if f2.overflow[j]:
-                    fallback.add(i)
-                    continue
-                trimx, trimy, trimd, trimha, trimhb = _reach_select(
-                    f2, j, self.spec.reach)
-                _, fwd, btr = _host.extract_forward_traces(
-                    f2.pool[j], trimha, trimhb, trimx, trimy, trimd,
-                    int(a2[j]))
-                ap = apaths[i]
-                ap.aepos, ap.bepos, ap.diffs = fwd.aepos, fwd.bepos, fwd.diffs
-                fwd_a[i] = fwd.trace
-                fwd_b[i] = btr
+            orc[idx[f2.overflow]] = True
+            j = np.flatnonzero(~f2.overflow)
+            lanes = idx[j]
+            trim = _reach_select(f2, j, self.spec.reach)
+            ta, oa, tb, ob, _ = self._walk(_tw.forward, lib, f2.pool, j,
+                                           trim, a2[j])
+            ae[lanes], be[lanes], df[lanes] = trim[:3]
+            tra.put(lanes, ta, oa)
+            trb.put(lanes, tb, ob)
             self._step("refine")
 
-        if redo_r:
-            idx = np.array(redo_r, np.int32)
-            d2 = np.array([apaths[i].aepos - apaths[i].bepos
-                           for i in redo_r], np.int32)
-            a2 = np.array([apaths[i].aepos + apaths[i].bepos
-                           for i in redo_r], np.int32)
+        if len(redo_r):
+            idx = redo_r
+            d2 = (ae - be)[idx].astype(np.int32)
+            a2 = (ae + be)[idx].astype(np.int32)
             r2 = self._run("rev", abase[idx], bbase[idx], a2, d2,
                            aoffp[idx], boffp[idx], Adev, Bdev,
                            sortkey=np.minimum((a2 + d2) // 2,
                                               (a2 - d2) // 2))
-            for j, i in enumerate(redo_r):
-                if r2.overflow[j]:
-                    fallback.add(i)
-                    continue
-                trimx, trimy, trimd, trimha, trimhb = _reach_select(
-                    r2, j, self.spec.reach)
-                ap = apaths[i]
-                fa, fb = [], []
-                a_pre, b_pre = _host.extract_reverse_traces(
-                    r2.pool[j], trimha, trimhb, trimx, trimy, trimd, TS,
-                    int(aoffp[i]), int(boffp[i]), fa, fb)
-                ap.abpos, ap.bbpos = trimx, trimy
-                ap.diffs = trimd
-                fwd_a[i] = a_pre + fa
-                fwd_b[i] = b_pre + fb
+            orc[idx[r2.overflow]] = True
+            j = np.flatnonzero(~r2.overflow)
+            lanes = idx[j]
+            trim = _reach_select(r2, j, self.spec.reach)
+            ta, oa, tb, ob = self._walk(_tw.reverse, lib, r2.pool, j, trim,
+                                        TS, aoffp[lanes], boffp[lanes])
+            ab[lanes], bb[lanes], df[lanes] = trim[:3]
+            tra.put(lanes, ta, oa)
+            trb.put(lanes, tb, ob)
             self._step("refine")
 
-        for i in range(n):
-            if i in fallback:
-                continue
-            ap = apaths[i]
-            bp = _host.PathRec()
-            ap.trace = fwd_a[i]
-            bp.trace = fwd_b[i]
-            _host.finalize_paths(ap, bp, int(flags[i]), int(alen[i]),
-                                 int(blen[i]))
-            out[i] = (ap, bp)
+        # the paths' finish (finalize_paths, align.c:1857-1912) over the
+        # round: coordinate flips, and the (d, b) pairs reversed of the A
+        # trace of an ACOMP lane and of the B trace of a COMP lane
+        lanes = np.flatnonzero(~orc)
+        fl, al, bl = flags[lanes], alen[lanes], blen[lanes]
+        acomp = (fl & _host.ACOMP_FLAG) != 0
+        comp = ~acomp & ((fl & _host.COMP_FLAG) != 0)
+        ab, bb, ae, be = ab[lanes], bb[lanes], ae[lanes], be[lanes]
+        # (abpos, bbpos, aepos, bepos, diffs) of each lane's two paths
+        acols = [c.tolist() for c in (
+            np.where(acomp, al - ae, ab), np.where(acomp, bl - be, bb),
+            np.where(acomp, al - ab, ae), np.where(acomp, bl - bb, be),
+            df[lanes])]
+        bcols = [c.tolist() for c in (
+            np.where(comp, bl - be, bb), np.where(comp, al - ae, ab),
+            np.where(comp, bl - bb, be), np.where(comp, al - ab, ae),
+            df[lanes])]
+        ta, tb = tra.lists(lanes, acomp), trb.lists(lanes, comp)
+        for k, i in enumerate(lanes.tolist()):
+            out[i] = (_host.PathRec(*(c[k] for c in acols), ta[k]),
+                      _host.PathRec(*(c[k] for c in bcols), tb[k]))
         self._step("trace")
-        for i in sorted(fallback):
+        for i in np.flatnonzero(orc).tolist():
             self.n_fallback += 1
             out[i] = self._oracle(Anp, Bnp, seeds[i])
         self._step("oracle")
         return out
+
+    def _trace_lib(self):
+        """The native trace walk, or None where it cannot be loaded (the
+        plain walk of ops.wave then walks every lane)."""
+        if self._tlib is None:
+            try:
+                self._tlib = native.trace_lib()
+            except (OSError, ImportError, FileNotFoundError):
+                self._tlib = False
+        return self._tlib or None
+
+    @staticmethod
+    def _walk(fn, lib, pool, lanes, *args):
+        """One walk (trace_walk.forward or .reverse) of a pass's lanes,
+        counted ("engine.walk_lanes", "engine.walk_native_lanes")."""
+        spans.count("engine.walk_lanes", len(lanes))
+        spans.count("engine.walk_native_lanes",
+                    len(lanes) if lib is not None else 0)
+        return fn(lib, pool, lanes, *args)
 
 
 def trace_offsets(flags, alen, blen, trace_space):
@@ -652,21 +660,18 @@ def trace_offsets(flags, alen, blen, trace_space):
     return aoffp.astype(np.int32), boffp.astype(np.int32)
 
 
-def _reach_select(res: WaveResult, i: int, reach: bool):
-    """REACH boundary selection (align.c:907-915 / 1561-1569)."""
-    if res.morem[i] >= 0 and reach:
-        trimy = int(res.morey[i])
-        trimx = int(res.morea[i]) - trimy
-        trimd = int(res.mored[i])
-        trimha = int(res.moreha[i])
-        trimhb = int(res.morehb[i])
-    else:
-        trimy = int(res.trimy[i])
-        trimx = int(res.trima[i]) - trimy
-        trimd = int(res.trimd[i])
-        trimha = int(res.trimha[i])
-        trimhb = int(res.trimhb[i])
-    return trimx, trimy, trimd, trimha, trimhb
+def _reach_select(res: WaveResult, lanes, reach: bool):
+    """REACH boundary selection (align.c:907-915 / 1561-1569) of ``lanes``:
+    (trimx, trimy, trimd, trimha, trimhb), int64 arrays."""
+    m = (res.morem[lanes] >= 0) & reach
+
+    def pick(more, trim):
+        return np.where(m, more[lanes], trim[lanes]).astype(np.int64)
+
+    trimy = pick(res.morey, res.trimy)
+    return (pick(res.morea, res.trima) - trimy, trimy,
+            pick(res.mored, res.trimd), pick(res.moreha, res.trimha),
+            pick(res.morehb, res.trimhb))
 
 
 def local_alignment_batch(spec: AlignSpec, Anp, Bnp, seeds, device=None,

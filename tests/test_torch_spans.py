@@ -204,8 +204,11 @@ def test_one_call_has_the_span_tree_and_its_stage_seconds(tmp_path,
         s["block"]["s"] - sum(v["s"] for k, v in s.items()
                               if PARENTS.get(k) == "block"), abs=1e-9)
     c = st["counts"]
-    assert set(c) == {"engine.launches", "engine.launch_lanes"}
+    assert set(c) == {"engine.launches", "engine.launch_lanes",
+                      "engine.walk_lanes", "engine.walk_native_lanes"}
     assert c["engine.launch_lanes"] >= st["n_lanes"] > 0
+    # every lane of every pass walked, each by the native walk
+    assert c["engine.walk_native_lanes"] == c["engine.walk_lanes"] > 0
     assert c["engine.launches"] == sum(st["kernel_launches"].values())
     for gone in ("mesh_ranks", "cell_updates"):
         assert gone not in st
