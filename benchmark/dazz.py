@@ -34,31 +34,60 @@ HEADER_DTYPE = np.dtype([
 _REC = struct.Struct("<iiiiiiIii4x")
 
 
+#: bases counted or packed in one step, which bounds the temporaries
+PACK_STEP = 1 << 22
+
+
 def base_freq(seq: np.ndarray) -> np.ndarray:
     """The header's base frequencies (fasta2DAM's counts over the total)."""
-    counts = np.bincount(seq, minlength=4)[:4]
+    counts = np.zeros(4, np.int64)
+    for a in range(0, len(seq), PACK_STEP):
+        step = seq[a:a + PACK_STEP]
+        for b in range(4):
+            counts[b] += np.count_nonzero(step == b)
     return (counts / max(int(counts.sum()), 1)).astype(np.float32)
 
 
 def _pack(seq: np.ndarray, offs: np.ndarray):
-    """(.bps bytes, byte offset of each read): every read padded to a
-    whole byte."""
+    """(.bps bytes as a uint8 array, byte offset of each read): every read
+    padded to a whole byte."""
     rlens = np.diff(offs)
-    plens = (rlens + 3) // 4 * 4
-    poffs = np.concatenate([[0], np.cumsum(plens)])
+    poffs = np.concatenate([[0], np.cumsum((rlens + 3) // 4 * 4)])
+    out = np.empty(int(poffs[-1]) // 4, np.uint8)
     if (rlens % 4 == 0).all():
-        padded = seq
-    else:
-        padded = np.zeros(int(poffs[-1]), np.uint8)
-        dst = np.arange(len(seq), dtype=np.int64)
-        dst += np.repeat(poffs[:-1] - offs[:-1], rlens)
-        padded[dst] = seq
-    q = padded.reshape(-1, 4)
-    packed = q[:, 0] << 6
-    packed |= q[:, 1] << 4
-    packed |= q[:, 2] << 2
-    packed |= q[:, 3]
-    return packed.tobytes(), poffs[:-1] // 4
+        _pack_whole(seq, out)
+        return out, poffs[:-1] // 4
+    # runs of reads of about PACK_STEP padded bases (a longer read alone),
+    # each read copied into a zeroed buffer at its padded offset
+    i = 0
+    while i < len(rlens):
+        j = max(int(np.searchsorted(poffs, poffs[i] + PACK_STEP,
+                                    "right")) - 1, i + 1)
+        p0, p1 = int(poffs[i]), int(poffs[j])
+        buf = np.zeros(p1 - p0, np.uint8)
+        copy_runs(buf, poffs[i:j] - p0, seq, offs[i:j], rlens[i:j])
+        _pack_whole(buf, out[p0 // 4:p1 // 4])
+        i = j
+    return out, poffs[:-1] // 4
+
+
+def _pack_whole(seq: np.ndarray, out: np.ndarray) -> None:
+    """out[k] = the bases seq[4k:4k+4], 2 bits each, the first in the top
+    bits: a 4-base group read as a little-endian 32-bit word w holds its
+    bases at bits 0, 8, 16 and 24, and w * 0x40100401 gathers them, with
+    nothing carried in, into bits 30, 28, 26 and 24."""
+    for a in range(0, len(out), PACK_STEP // 4):
+        w = seq[4 * a:4 * a + PACK_STEP].view("<u4") * np.uint32(0x40100401)
+        w >>= 24
+        out[a:a + len(w)] = w
+
+
+def copy_runs(dst: np.ndarray, at, src: np.ndarray, start, lens) -> None:
+    """dst[at[i]:at[i] + lens[i]] = src[start[i]:start[i] + lens[i]] for
+    every i in order: one slice copy a run, no per-base index."""
+    d, s = memoryview(dst), memoryview(src)
+    for a, b, n in zip(at.tolist(), start.tolist(), lens.tolist()):
+        d[a:a + n] = s[b:b + n]
 
 
 def _blocks(rlens: np.ndarray, bsize: int) -> list[int]:

@@ -24,6 +24,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .dazz import copy_runs
+
 
 def seed_sequence(seed: int) -> np.random.SeedSequence:
     """Any whole number, negative ones and those past 64 bits included."""
@@ -70,6 +72,8 @@ class ReadBlock:
 
 #: the most bases one pass of the generator gathers at once
 BATCH_BASES = 40_000_000
+#: bases of one step inside a pass, whose temporaries stay in the cache
+DRAW_STEP = 1 << 16
 
 
 def draw_genome(ss: np.random.SeedSequence, cfg: dict) -> Genome:
@@ -79,10 +83,51 @@ def draw_genome(ss: np.random.SeedSequence, cfg: dict) -> Genome:
     offs = np.concatenate([[0], np.cumsum([int(c[1]) for c in
                                            cfg["contigs"]])]).astype(np.int64)
     rng = np.random.default_rng(ss)
-    seq = rng.integers(0, 4, size=int(offs[-1]), dtype=np.uint8)
+    seq = uniform_bases(rng, int(offs[-1]))
     for cls in cfg.get("repeats", []):
         place_repeats(rng, seq, cls)
     return Genome(seq, offs, names)
+
+
+def uniform_bases(rng, n: int) -> np.ndarray:
+    """``rng.integers(0, 4, size=n, dtype=np.uint8)``, bit for bit, with
+    ``rng`` left as that call leaves it, at a fraction of its cost.
+
+    numpy draws such a base by Lemire's method, which never rejects for a
+    range of 4, from one byte of a 32-bit draw: the byte's top two bits.  A
+    32-bit draw is one half of a 64-bit word, the low half first, the high
+    half kept for the next.  So n bases are the top two bits of each byte
+    of the first n / 8 words.  A probe of the call itself, on a copy of the
+    generator's state, checks that this numpy draws so, and raises
+    RuntimeError where it does not."""
+    bg = rng.bit_generator
+    start = bg.state
+    probe = rng.integers(0, 4, size=min(n, 4099), dtype=np.uint8)
+    after = bg.state
+    bg.state = start
+    same = np.array_equal(_raw_bases(bg, len(probe)), probe) \
+        and bg.state == after
+    bg.state = start
+    if not same:
+        raise RuntimeError(
+            f"numpy {np.__version__} draws integers(0, 4, uint8) otherwise "
+            "than from the top bits of its 32-bit draws; uniform_bases "
+            "would not give its bases")
+    return _raw_bases(bg, n)
+
+
+def _raw_bases(bg, n: int) -> np.ndarray:
+    """uniform_bases' n bases from the bit generator's 64-bit words."""
+    halves = -(-n // 4)
+    words = bg.random_raw(-(-halves // 2)).astype("<u8", copy=False)
+    if halves:
+        st = bg.state
+        st["has_uint32"] = halves % 2
+        st["uinteger"] = int(words[-1] >> np.uint64(32))
+        bg.state = st
+    out = words.view(np.uint8)
+    out >>= 6
+    return out[:n]
 
 
 def place_repeats(rng, seq: np.ndarray, cls: dict) -> int:
@@ -101,6 +146,10 @@ def place_repeats(rng, seq: np.ndarray, cls: dict) -> int:
     fl = rng.integers(flo, fhi + 1, size=int(cls["families"]))
     foffs = np.concatenate([[0], np.cumsum(fl)])
     cons = rng.integers(0, 4, size=int(foffs[-1]), dtype=np.uint8)
+    # a copy reads one forward run of cat: its stretch of the consensus,
+    # or on the reverse strand the same stretch of the consensuses
+    # reversed and complemented
+    cat = np.concatenate([cons, 3 - cons[::-1]])
     cmin = np.minimum(int(cls["copy_len_min"]), fl)
     mean_copy = float(((cmin + fl) / 2).mean())
     dlo, dhi = (float(x) for x in cls["divergence"])
@@ -122,23 +171,33 @@ def place_repeats(rng, seq: np.ndarray, cls: dict) -> int:
         clen, fam, cstart, pos, rev, div = (x[:m] for x in (
             clen, fam, cstart, pos, rev, div))
         coffs = np.concatenate([[0], np.cumsum(clen)])
-        j = np.arange(coffs[-1], dtype=np.int64)
-        j -= np.repeat(coffs[:-1], clen)
-        r = np.repeat(rev, clen)
-        # base j of a copy: consensus base cstart + j, or from the
-        # stretch's end, complemented, on the reverse strand
-        src = np.where(r, np.repeat(cstart + clen - 1, clen) - j,
-                       np.repeat(cstart, clen) + j)
-        src += np.repeat(foffs[fam], clen)
-        bases = cons[src]
-        np.subtract(3, bases, out=bases, where=r)
-        sub = np.flatnonzero(rng.random(len(bases)) < np.repeat(div, clen))
+        first = foffs[fam] + cstart
+        first = np.where(rev, 2 * len(cons) - first - clen, first)
+        # the copies' bases back to back, each run copied whole
+        bases = np.empty(int(coffs[-1]), np.uint8)
+        copy_runs(bases, coffs[:-1], cat, first, clen)
+        sub = _below(rng, div, clen, coffs)
         bases[sub] = (bases[sub] + rng.integers(1, 4, size=len(sub),
                                                 dtype=np.uint8)) % 4
-        j += np.repeat(pos, clen)
-        seq[j] = bases
+        # in order, so that a later copy overwrites an earlier one
+        copy_runs(seq, pos, bases, coffs[:-1], clen)
         placed += int(coffs[-1])
     return placed
+
+
+def _below(rng, div, clen, coffs) -> np.ndarray:
+    """np.flatnonzero(rng.random(coffs[-1]) < np.repeat(div, clen)): the
+    same draws, made in steps of whole copies of about DRAW_STEP bases so
+    that a step's temporaries stay in the cache."""
+    at = np.searchsorted(coffs, np.arange(0, coffs[-1], DRAW_STEP),
+                         "right") - 1
+    at = np.append(np.unique(at), len(clen)).tolist()
+    out = []
+    for k0, k1 in zip(at[:-1], at[1:]):
+        a = int(coffs[k0])
+        out.append(np.flatnonzero(rng.random(int(coffs[k1]) - a)
+                                  < np.repeat(div[k0:k1], clen[k0:k1])) + a)
+    return np.concatenate(out)
 
 
 def draw_lengths(rng, n: int, model: dict) -> np.ndarray:

@@ -10,8 +10,10 @@ maps the traffic's read blocks one after another, cycling through them,
 through the port's entry (``damapper_tpu_torch.pipeline.mapper.run_damapper``
 with the configuration's options and every other knob at its default) and
 starts blocks until ``--seconds`` have passed; the window closes when the
-last block ends, in a synchronize.  Then it checks the window's outputs
-(check.py, against the plain reference in ref/) and prints, as the last
+last block ends, in a synchronize.  Before any of that it sets glibc's
+malloc to keep what the process frees (steady_malloc), so that the timed
+blocks reuse memory that is already mapped.  Then it checks the window's
+outputs (check.py, against the plain reference in ref/) and prints, as the last
 line of its standard output, one JSON object:
 
     {"correct", "attempted", "failed", "metrics", "device", ["breakdown"],
@@ -34,6 +36,7 @@ import time
 _T0 = time.perf_counter()
 
 import argparse  # noqa: E402
+import ctypes  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -51,6 +54,7 @@ from .ref.mapper import GOVERNOR  # noqa: E402
 
 CHECKOUT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "damapper_tpu")
+M_MMAP_MAX, M_TRIM_THRESHOLD = -4, -1     # mallopt's parameters (malloc.h)
 STAT_SUMS = ("kernel_ms", "align_device_s", "align_host_s",
              "ref_index_builds", "ref_index_cache_hits", "n_lanes")
 
@@ -82,6 +86,22 @@ def forbidden_modules() -> list[str]:
     package, compared whole (damapper_tpu_torch is not damapper_tpu)."""
     return sorted({m.split(".")[0] for m in list(sys.modules)}
                   & set(FORBIDDEN))
+
+
+def steady_malloc() -> None:
+    """glibc's malloc in this process: no allocation served by its own
+    mmap (M_MMAP_MAX 0) and no trimming of the heap's top (M_TRIM_THRESHOLD
+    -1), as mallopt(3) defines them.  A block's large arrays then reuse heap
+    pages that earlier blocks mapped, instead of an mmap, page faults and a
+    munmap each: system time that varies with the host's load (2.4-3.2 s of
+    a 30 s window before, 0.2 s after, on an H100's host).  Raises where
+    mallopt is missing or refuses."""
+    libc = ctypes.CDLL("libc.so.6")
+    libc.mallopt.argtypes = [ctypes.c_int, ctypes.c_int]
+    libc.mallopt.restype = ctypes.c_int
+    for param, value in ((M_MMAP_MAX, 0), (M_TRIM_THRESHOLD, -1)):
+        if libc.mallopt(param, value) != 1:
+            raise RuntimeError(f"mallopt({param}, {value}) refused")
 
 
 def host_rate(seconds: float = 0.25) -> float:
@@ -332,6 +352,7 @@ def main(argv=None) -> int:
     ap.add_argument("--traffic-dir", help="another traffic folder (tests)")
     args = ap.parse_args(argv)
     try:
+        steady_malloc()
         result = run(args)
     except NoCard as e:
         print(f"benchmark: {e}; no result", file=sys.stderr)

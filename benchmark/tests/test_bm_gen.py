@@ -2,12 +2,16 @@
 rates, DBsplit's blocks, and files equal to the program's own writer."""
 
 import filecmp
+import hashlib
+import json
+import pathlib
+import tracemalloc
 
 import numpy as np
 import pytest
 
 from benchmark import dazz, gen
-from conftest import TINY_CONFIG, TINY_TRAFFIC
+from conftest import REPO, TINY_CONFIG, TINY_TRAFFIC
 
 MODEL = {"read_len": {"mean": 6000, "sd": 1500, "min": 3000},
          "error_rate": 0.15, "ins_share": 0.55, "del_share": 0.25,
@@ -137,3 +141,113 @@ def test_repeat_copies_cover_their_share_and_repeat_kmers():
         return int((counts > 2).sum())
     assert repeated(flat) == 0
     assert repeated(seq) > 5_000
+
+
+# --- the same bytes as the generator and writers always gave ----------------
+
+DMEL = json.loads((REPO / "benchmark" / "configs" / "dmel_140M.json")
+                  .read_text())
+GRCH38 = json.loads((pathlib.Path(__file__).parent / "grch38_shape.json")
+                    .read_text())
+CLR = json.loads((REPO / "benchmark" / "traffic" / "clr_rb200M.json")
+                 .read_text())
+SIX_CLASSES = dict(GRCH38, contigs=[["c1", 900_001], ["c2", 600_002],
+                                    ["c3", 300_003]],
+                   ref_block_bases=1_000_000)
+#: name: (configuration, BATCH_BASES)
+DIGEST_CASES = {
+    # dm6's arms at a 64th of their lengths, with their TE class
+    "dmel_140M/64": (dict(DMEL, contigs=[[c, n // 64]
+                                         for c, n in DMEL["contigs"]],
+                          ref_block_bases=1_000_000), gen.BATCH_BASES),
+    # the six classes of the GRCh38 shape on contigs whose lengths are
+    # no multiple of 4 (the writers' padding)
+    "six_classes": (SIX_CLASSES, gen.BATCH_BASES),
+    # the same in batches of 64 kb: each class places its copies over many
+    # batches, as the full-size genomes do
+    "six_classes/batch64k": (SIX_CLASSES, 65_536),
+}
+DIGEST_TRAFFIC = dict(CLR, block_bases=200_000, distinct_blocks=2)
+DIGEST_SEEDS = (0, 3000000201, 2**63 + 11)
+
+
+def cell_digests(cfg: dict, traffic: dict, seed: int, root) -> dict:
+    """SHA-256 of the genome's bases and of every file write_dam and
+    write_reads write for one cell and seed."""
+    g, blocks = gen.draw_cell(seed, cfg, traffic)
+    dazz.write_dam(str(root / "ref"), g, int(cfg["ref_block_bases"]))
+    dazz.write_reads(str(root / "reads"), blocks,
+                     int(traffic["block_bases"]))
+    out = {"genome.seq": hashlib.sha256(g.seq.tobytes()).hexdigest()}
+    for p in sorted(root.iterdir()):
+        out[p.name] = hashlib.sha256(p.read_bytes()).hexdigest()
+    return out
+
+
+#: "<case> <seed>": cell_digests, computed with the generator and writers
+#: as they were before their index arithmetic was narrowed (per-base int64
+#: arrays)
+GOLDEN = json.loads((pathlib.Path(__file__).parent / "bytes_golden.json")
+                    .read_text())
+
+
+@pytest.mark.parametrize("case", sorted(DIGEST_CASES))
+@pytest.mark.parametrize("seed", DIGEST_SEEDS)
+def test_the_same_bytes_as_before(case, seed, tmp_path, monkeypatch):
+    cfg, batch = DIGEST_CASES[case]
+    monkeypatch.setattr(gen, "BATCH_BASES", batch)
+    got = cell_digests(cfg, DIGEST_TRAFFIC, seed, tmp_path)
+    assert got == GOLDEN[f"{case} {seed}"]
+
+
+@pytest.mark.parametrize("n", [0, 1, 4, 5, 8, 9, 4099, 100_003])
+def test_uniform_bases_are_the_calls_bases_from_raw_words(n):
+    a, b = np.random.default_rng(n), np.random.default_rng(n)
+    want = a.integers(0, 4, size=n, dtype=np.uint8)
+    assert np.array_equal(gen._raw_bases(b.bit_generator, n), want)
+    assert b.bit_generator.state == a.bit_generator.state
+    assert np.array_equal(b.integers(0, 4, size=9, dtype=np.uint8),
+                          a.integers(0, 4, size=9, dtype=np.uint8))
+
+
+def test_uniform_bases_raise_where_numpy_draws_otherwise():
+    class OtherDraws:
+        """A generator whose integers are not the top bits of its words."""
+        def __init__(self):
+            self.bit_generator = np.random.PCG64(7)
+
+        def integers(self, lo, hi, size, dtype):
+            self.bit_generator.random_raw(size)
+            return np.zeros(size, dtype)
+
+    rng = OtherDraws()
+    start = rng.bit_generator.state
+    with pytest.raises(RuntimeError, match="numpy"):
+        gen.uniform_bases(rng, 100)
+    assert rng.bit_generator.state == start
+
+
+def _padded_reads(n: int):
+    """A 2-bit sequence of about n bases cut into reads of 1-20 kb, none
+    of a length a multiple of 4: (seq, offs)."""
+    rng = np.random.default_rng(4)
+    lens = 4 * rng.integers(250, 5000, size=n // 10_000 + 2) \
+        + rng.integers(1, 4, size=n // 10_000 + 2)
+    lens = lens[:int(np.searchsorted(np.cumsum(lens), n)) + 1]
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    return rng.integers(0, 4, size=int(offs[-1]), dtype=np.uint8), offs
+
+
+@pytest.mark.parametrize("step", ["pack", "base_freq"])
+def test_the_writers_stay_under_3_bytes_a_base(step):
+    seq, offs = _padded_reads(64 << 20)
+    tracemalloc.start()
+    try:
+        if step == "pack":
+            dazz._pack(seq, offs)
+        else:
+            dazz.base_freq(seq)
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert peak < 3 * len(seq), peak / len(seq)

@@ -80,3 +80,27 @@ def test_a_broken_timed_path_is_not_correct(tiny, fault):
     r = last_line(p.stdout)
     assert r["correct"] is False
     assert any(v["value"] > v["limit"] for v in r["check"].values())
+
+
+def test_steady_malloc_keeps_freed_arrays_in_the_heap():
+    """After run.steady_malloc a freed 64 MiB array stays in malloc's heap
+    as free bytes (by default it is its own mmap, returned on free)."""
+    code = (
+        "import ctypes\n"
+        "import numpy as np\n"
+        "from benchmark import run\n"
+        "class Info(ctypes.Structure):\n"
+        "    _fields_ = [(f, ctypes.c_size_t) for f in ('arena', 'ordblks',"
+        " 'smblks', 'hblks', 'hblkhd', 'usmblks', 'fsmblks', 'uordblks',"
+        " 'fordblks', 'keepcost')]\n"
+        "libc = ctypes.CDLL('libc.so.6')\n"
+        "libc.mallinfo2.argtypes = []\n"
+        "libc.mallinfo2.restype = Info\n"
+        "run.steady_malloc()\n"
+        "a = np.ones(1 << 23)\n"
+        "del a\n"
+        "print(libc.mallinfo2().fordblks)\n")
+    p = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stderr
+    assert int(p.stdout.split()[-1]) >= 1 << 26
