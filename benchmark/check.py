@@ -122,13 +122,15 @@ def compare(got: dict, expect: dict) -> tuple[int, int]:
 
 
 def reference_answers(sample, genome, blocks, ref_cut, read_cut, opts,
-                      work, device, control: bool = False) -> dict:
+                      work, device, control: bool = False,
+                      workers: int | None = None) -> dict:
     """{(block, read): (records, -p bytes or None)} of the plain reference
     (with ``control``: of the control, ref/mapper.py control_wave) for the
-    sample; ``work`` is the directory of the DAZZ files."""
+    sample; ``work`` is the directory of the DAZZ files, ``workers`` the
+    host processes of its per-read tasks (ref/mapper.py map_samples)."""
     paths = {"reads": hidden_root(str(work / "reads.1")),
              "ref": hidden_root(str(work / "ref.dam"))}
     parts = [(b, blocks[b], read_cut[b], [r for bb, r in sample if bb == b])
              for b in sorted({b for b, _ in sample})]
     return map_samples(genome, ref_cut, parts, opts, paths, device,
-                       control=control)
+                       control=control, workers=workers)

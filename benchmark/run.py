@@ -36,7 +36,6 @@ import time
 _T0 = time.perf_counter()
 
 import argparse  # noqa: E402
-import ctypes  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -50,11 +49,11 @@ from contextlib import nullcontext  # noqa: E402
 from dataclasses import dataclass  # noqa: E402
 
 from . import cells, check, dazz, devtrace, gen  # noqa: E402
+from .heap import steady_malloc  # noqa: E402
 from .ref.mapper import GOVERNOR  # noqa: E402
 
 CHECKOUT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "damapper_tpu")
-M_MMAP_MAX, M_TRIM_THRESHOLD = -4, -1     # mallopt's parameters (malloc.h)
 STAT_SUMS = ("kernel_ms", "align_device_s", "align_host_s",
              "ref_index_builds", "ref_index_cache_hits", "n_lanes")
 
@@ -86,22 +85,6 @@ def forbidden_modules() -> list[str]:
     package, compared whole (damapper_tpu_torch is not damapper_tpu)."""
     return sorted({m.split(".")[0] for m in list(sys.modules)}
                   & set(FORBIDDEN))
-
-
-def steady_malloc() -> None:
-    """glibc's malloc in this process: no allocation served by its own
-    mmap (M_MMAP_MAX 0) and no trimming of the heap's top (M_TRIM_THRESHOLD
-    -1), as mallopt(3) defines them.  A block's large arrays then reuse heap
-    pages that earlier blocks mapped, instead of an mmap, page faults and a
-    munmap each: system time that varies with the host's load (2.4-3.2 s of
-    a 30 s window before, 0.2 s after, on an H100's host).  Raises where
-    mallopt is missing or refuses."""
-    libc = ctypes.CDLL("libc.so.6")
-    libc.mallopt.argtypes = [ctypes.c_int, ctypes.c_int]
-    libc.mallopt.restype = ctypes.c_int
-    for param, value in ((M_MMAP_MAX, 0), (M_TRIM_THRESHOLD, -1)):
-        if libc.mallopt(param, value) != 1:
-            raise RuntimeError(f"mallopt({param}, {value}) refused")
 
 
 def host_rate(seconds: float = 0.25) -> float:

@@ -38,3 +38,21 @@ def test_the_command_line_prints_one_json_line(tmp_path, monkeypatch,
     out = json.loads(cap.out.strip().splitlines()[-1])
     assert out["data_s"] > 0 and "check_s" not in out
     assert "setup_time: tiny x tiny_rb seed 7" in cap.err
+
+
+def test_each_worker_count_checks_the_same_answers(tmp_path, monkeypatch,
+                                                   capsys):
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    monkeypatch.setattr(cells.Catalog, "traffic",
+                        lambda self, name: dict(TINY_TRAFFIC, name=name))
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(json.dumps(TINY_CONFIG))
+    assert setup_time.main(["--config", str(cfg), "--traffic", "tiny_rb",
+                            "--seed", "7", "--check-on", "cpu",
+                            "--check-workers", "2", "1"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert [c["workers"] for c in out["checks"]] == [2, 1]
+    assert out["checks"][0]["answers_sha256"] == \
+        out["checks"][1]["answers_sha256"]
+    assert out["check_s"] == out["checks"][0]["check_s"] > 0
+    assert out["cpus"] >= 1
