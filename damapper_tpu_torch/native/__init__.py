@@ -33,14 +33,14 @@ _chain_lib = None
 
 
 def chain_lib():
-    """ctypes handle to the chain sweep library (lazy build)."""
+    """ctypes handle to the chain sweep and push library (lazy build)."""
     global _chain_lib
     if _chain_lib is None:
         lib = ctypes.CDLL(str(_build("chain_sweep")))
         lib.chain_sweep.restype = ctypes.c_void_p
         lib.chain_sweep.argtypes = [
             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
         lib.result_meta_len.restype = ctypes.c_int64
         lib.result_meta_len.argtypes = [ctypes.c_void_p]
         lib.result_meta.restype = ctypes.POINTER(ctypes.c_int32)
@@ -51,6 +51,19 @@ def chain_lib():
         lib.result_jumps.argtypes = [ctypes.c_void_p]
         lib.result_free.restype = None
         lib.result_free.argtypes = [ctypes.c_void_p]
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.chain_state_new.restype = p
+        lib.chain_state_new.argtypes = [i64, p, p, ctypes.c_int32]
+        lib.chain_push.restype = i64
+        lib.chain_push.argtypes = [p, p, ctypes.c_int32, ctypes.c_int32]
+        lib.chain_state_count.restype = i64
+        lib.chain_state_count.argtypes = [p]
+        lib.chain_state_jumps_len.restype = i64
+        lib.chain_state_jumps_len.argtypes = [p]
+        lib.chain_state_export.restype = i64
+        lib.chain_state_export.argtypes = [p, p, p, p, p]
+        lib.chain_state_free.restype = None
+        lib.chain_state_free.argtypes = [p]
         _chain_lib = lib
     return _chain_lib
 

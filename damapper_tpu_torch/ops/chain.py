@@ -27,6 +27,7 @@ the MIN_PIECE/0.9-score dominance rule over the read's candidate stack
 
 from __future__ import annotations
 
+import os
 from bisect import bisect_left, insort
 from dataclasses import dataclass, field
 
@@ -37,6 +38,10 @@ from ..utils import spans
 HITMIN = 3        # map.c:34
 MAX_GAP = 1000    # map.c:36
 MIN_PIECE = 300   # map.c:37
+
+# threads of the native sweep (it takes one a 65,536 hits, at most this
+# many): the cores this process may run on, at most 8
+SWEEP_THREADS = min(8, len(os.sched_getaffinity(0)))
 
 
 class _Node:
@@ -91,7 +96,13 @@ def _chain_length(h: _Node) -> int:
 class ChainState:
     """Per-reads-block chaining state persisted across reference blocks:
     the candidate stack per read (reads[].coff equivalent) and the optional
-    repeat-profile coverage counters."""
+    repeat-profile coverage counters.
+
+    The native path keeps the stacks in C++ (native/chain_sweep.cpp's
+    State, made at the first native pass) until ``finish`` exports them as
+    ``cands``, which refuses to be read before that.  The Python and device
+    paths push into ``cands`` in Python.  ``cover[r]`` is read r's view of
+    one flat int32 array, which both pushes write."""
 
     def __init__(self, nreads: int, kmer: int, profile=False, rlens=None,
                  spacing=100, device=None):
@@ -99,14 +110,78 @@ class ChainState:
         self.device = device    # where process_hits(device=True) sweeps
         self.kmer = kmer
         self.hithr = HITMIN * kmer
-        self.cands: list[list[Candidate]] = [[] for _ in range(nreads)]
+        self._cands: list[list[Candidate]] | None = None
+        self._lib = self._h = None      # the native library and State
         self.profile = profile
         self.spacing = spacing
         if profile:
-            self.cover = [np.zeros((int(rlens[i]) - 1) // spacing + 2, np.int32)
+            sizes = (np.asarray(rlens[:nreads], np.int64) - 1) // spacing + 2
+            self._coff = np.zeros(nreads + 1, np.int64)
+            np.cumsum(sizes, out=self._coff[1:])
+            self._cover = np.zeros(int(self._coff[-1]), np.int32)
+            bounds = self._coff.tolist()
+            self.cover = [self._cover[bounds[i]:bounds[i + 1]]
                           for i in range(nreads)]
         else:
             self.cover = None
+
+    @property
+    def cands(self) -> list[list[Candidate]]:
+        """Each read's candidates, newest first."""
+        if self._h is not None:
+            raise RuntimeError("the native candidate stacks are live: "
+                               "call finish() before reading cands")
+        if self._cands is None:
+            self._cands = [[] for _ in range(self.nreads)]
+        return self._cands
+
+    def ncands(self) -> int:
+        """The candidates on the stacks, without exporting native ones."""
+        if self._h is not None:
+            return self._lib.chain_state_count(self._h)
+        return sum(len(c) for c in self._cands or ())
+
+    def finish(self) -> None:
+        """Export the native stacks into ``cands`` (span "chain.export",
+        counter "chain.cands_kept"); a no-op where no native pass ran or
+        they are exported already."""
+        if self._h is None:
+            return
+        lib, h = self._lib, self._h
+        self._h = None
+        with spans.span("chain.export"):
+            try:
+                n = lib.chain_state_count(h)
+                njumps = lib.chain_state_jumps_len(h) // 2
+                counts = np.empty(self.nreads, np.int32)
+                meta = np.empty((n, 8), np.int32)
+                index = np.empty(njumps, np.int32)
+                uniq = np.empty((njumps, 2), np.int32)
+                nuniq = lib.chain_state_export(
+                    h, counts.ctypes.data, meta.ctypes.data,
+                    index.ctypes.data, uniq.ctypes.data)
+            finally:
+                lib.chain_state_free(h)
+            # one tuple a distinct (adisp, bdisp) pair, shared by the jumps
+            # that repeat it: a tuple is immutable, so a shared one reads
+            # the same, and a block builds a few percent of the tuples
+            table = np.fromiter(zip(uniq[:nuniq, 0].tolist(),
+                                    uniq[:nuniq, 1].tolist()),
+                                object, nuniq)
+            pairs = table[index].tolist()
+            flat = []
+            cur = 0
+            for score, bread, comp, ab, ae, bb, be, length in meta.tolist():
+                flat.append(Candidate(score, bread, comp, ab, ae, bb, be,
+                                      length, pairs[cur:cur + length]))
+                cur += length
+            ends = np.cumsum(counts).tolist()
+            self._cands = [flat[s:e] for s, e in zip([0] + ends[:-1], ends)]
+        spans.count("chain.cands_kept", n)
+
+    def __del__(self):
+        if getattr(self, "_h", None) is not None:
+            self._lib.chain_state_free(self._h)
 
     # -- one (aread, bread) group -------------------------------------------
 
@@ -228,6 +303,8 @@ class ChainState:
 
     def _push_candidate(self, ar, cost, ab, ae, bb, be, length, jumps,
                         bread_global, comp):
+        # the paths that sweep in Python or on the device push here; the
+        # native path's push_one (native/chain_sweep.cpp) is the same rule
         if self.profile:
             cnt = self.cover[ar]
             tb = ab // self.spacing
@@ -282,12 +359,16 @@ class ChainState:
         device=True runs the batched sweep (ops.chain_device) on this
         state's device (None: the card) for groups within its capacity and
         the native sweep for the rest, with identical results.  native=True
-        uses the C++ sweep (native/chain_sweep.cpp); falls back to the
-        Python sweep if the native library cannot be built.
+        uses the C++ sweep and push (native/chain_sweep.cpp), into the
+        native stacks; falls back to the Python sweep if the native library
+        cannot be built.  A native pass raises RuntimeError once ``cands``
+        exists (after ``finish`` or a pass that pushed in Python).
 
         Spans (utils.spans) of the native and device sweeps: "chain.sweep"
-        (the chains of every group, their jumps as tuples) and "chain.push"
-        (each candidate through the dominance stack and the -p cover)."""
+        (the chains of every group) and "chain.push" (each candidate
+        through the dominance stack and the -p cover).  Counters: the
+        candidates the sweep emitted ("chain.cands"), those of them the
+        native push took ("chain.cands_native")."""
         n = len(hits)
         if n == 0:
             return
@@ -308,22 +389,53 @@ class ChainState:
                              (np.diff(bread.astype(np.int64)) != 0)) + 1
         starts = np.concatenate([[0], brk])
         ends = np.concatenate([brk, [n]])
+        ncand = 0
         for s, e in zip(starts, ends):
             ar = int(aread[s])
             br = int(bread[s])
             scan = self._sweep_group(apos1[s:e], bpos1[s:e])
             for h in scan:
                 if h.cost >= self.hithr and h.orig.best is h:
+                    ncand += 1
                     self._consider(ar, h, br + bstart, comp)
+        spans.count("chain.cands", ncand)
 
     def _process_hits_native(self, hits, bstart: int, comp: int) -> None:
+        from ..native import chain_lib
+
+        lib = chain_lib()
         apos1 = hits.apos + 1
+        bpos1 = apos1 - hits.diag
+        if self._cands is not None:
+            raise RuntimeError("a native chain pass after the candidates "
+                               "left the native stacks")
+        if self._h is None:
+            cover = None if self.cover is None else self._cover.ctypes.data
+            coff = None if self.cover is None else self._coff.ctypes.data
+            self._lib = lib
+            self._h = lib.chain_state_new(self.nreads, cover, coff,
+                                          self.spacing)
         with spans.span("chain.sweep"):
-            cands = self._native_sweep(hits.aread, hits.bread, apos1,
-                                       apos1 - hits.diag)
-        with spans.span("chain.push"):
-            for ar, br, *cand in cands:
-                self._push_candidate(ar, *cand, br + bstart, comp)
+            res = self._sweep_call(lib, hits.aread, hits.bread, apos1, bpos1)
+        try:
+            with spans.span("chain.push"):
+                n = lib.chain_push(self._h, res, int(bstart), int(comp))
+        finally:
+            lib.result_free(res)
+        spans.count("chain.cands", n)
+        spans.count("chain.cands_native", n)
+
+    def _sweep_call(self, lib, aread, bread, apos1, bpos1):
+        """The C++ sweep over hits sorted by (aread, bread), 1-based end
+        coords: a handle to its result, for lib.result_free."""
+        aread = np.ascontiguousarray(aread, np.int32)
+        bread = np.ascontiguousarray(bread, np.int32)
+        apos1 = np.ascontiguousarray(apos1, np.int32)
+        bpos1 = np.ascontiguousarray(bpos1, np.int32)
+        return lib.chain_sweep(len(aread),
+                               aread.ctypes.data, bread.ctypes.data,
+                               apos1.ctypes.data, bpos1.ctypes.data,
+                               self.kmer, SWEEP_THREADS)
 
     def _native_sweep(self, aread, bread, apos1, bpos1) -> list:
         """The C++ sweep (native/chain_sweep.cpp) over hits sorted by
@@ -332,13 +444,7 @@ class ChainState:
         from ..native import chain_lib
 
         lib = chain_lib()
-        aread = np.ascontiguousarray(aread, np.int32)
-        bread = np.ascontiguousarray(bread, np.int32)
-        apos1 = np.ascontiguousarray(apos1, np.int32)
-        bpos1 = np.ascontiguousarray(bpos1, np.int32)
-        h = lib.chain_sweep(len(aread),
-                            aread.ctypes.data, bread.ctypes.data,
-                            apos1.ctypes.data, bpos1.ctypes.data, self.kmer)
+        h = self._sweep_call(lib, aread, bread, apos1, bpos1)
         out = []
         try:
             nmeta = lib.result_meta_len(h)
@@ -405,6 +511,7 @@ class ChainState:
                 else:
                     ems = big_res.get(gi, [])
                 cands += [(ar, br, *em) for em in ems if em[0] >= self.hithr]
+        spans.count("chain.cands", len(cands))
         with spans.span("chain.push"):
             for ar, br, *cand in cands:
                 self._push_candidate(ar, *cand, br + bstart, comp)

@@ -410,13 +410,13 @@ def _map_block(ref_path, reads_path, cfg, out_dir):
                         else len(aindex))
                 print(f"   Block {k} comp={comp}: index = {nidx:,} "
                       f"kmers, hit count = {len(hits):,}", file=sys.stderr)
-            before = sum(len(c) for c in state.cands)
+            before = state.ncands() if cfg.verbose else 0
             with spans.span("chain"):
                 state.process_hits(hits, bstart, comp,
                                    device=cfg.chain_backend == "device")
             if cfg.verbose:
                 # candidate counters (map.c:3184-3208 epilogue)
-                tfilt = sum(len(c) for c in state.cands)
+                tfilt = state.ncands()
                 atot = max(1, reads_db.totlen)
                 btot = max(1, ref_blk.totlen)
                 print(f"     {len(hits):,} {cfg.kmer}-mers "
@@ -430,6 +430,8 @@ def _map_block(ref_path, reads_path, cfg, out_dir):
         aindex = cached = hits = pending_cmp = None
     # the reads' indexes are dead before the align stage's uploads
     bindex = bindex_rc = None
+    with spans.span("chain"):
+        state.finish()
 
     if nblocks == 1:
         # block 1 IS the full DB: un-complement it (the host orientation

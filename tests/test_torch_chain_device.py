@@ -68,6 +68,7 @@ def test_device_matches_host_sweeps(seed):
     states[0].process_hits(hits, bstart=5, comp=1, native=False)
     states[1].process_hits(hits, bstart=5, comp=1)
     states[2].process_hits(hits, bstart=5, comp=1, device=True)
+    states[1].finish()
     assert dump(states[2]) == dump(states[0]) == dump(states[1])
     assert dump(states[2])
 

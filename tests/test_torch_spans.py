@@ -151,7 +151,7 @@ def _write_dataset(tmp, seed=11, glen=60_000, ncontigs=2, nreads=12):
 PARENTS = {"block": None, "load.reads": "block", "index": "block",
            "load.ref": "block", "match": "block", "chain": "block",
            "chain.sweep": "chain", "chain.push": "chain",
-           "load.full": "block", "reporter": "block",
+           "chain.export": "chain", "load.full": "block", "reporter": "block",
            "reporter.upload": "reporter", "reporter.tasks": "reporter",
            "reporter.round": "reporter", "engine.batch": "reporter.round",
            "engine.upload": "engine.batch", "engine.pull": "engine.batch",
@@ -205,7 +205,12 @@ def test_one_call_has_the_span_tree_and_its_stage_seconds(tmp_path,
                               if PARENTS.get(k) == "block"), abs=1e-9)
     c = st["counts"]
     assert set(c) == {"engine.launches", "engine.launch_lanes",
-                      "engine.walk_lanes", "engine.walk_native_lanes"}
+                      "engine.walk_lanes", "engine.walk_native_lanes",
+                      "chain.cands", "chain.cands_native",
+                      "chain.cands_kept"}
+    # every candidate of every pass pushed by the native push
+    assert c["chain.cands_native"] == c["chain.cands"] >= \
+        c["chain.cands_kept"] > 0
     assert c["engine.launch_lanes"] >= st["n_lanes"] > 0
     # every lane of every pass walked, each by the native walk
     assert c["engine.walk_native_lanes"] == c["engine.walk_lanes"] > 0
